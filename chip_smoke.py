@@ -1,0 +1,619 @@
+"""Drive the PyTorch port on one NVIDIA GPU and hold its kernels to their
+plain versions.
+
+    python3 chip_smoke.py               # every phase; exit 0 only if all pass
+    python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
+    python3 chip_smoke.py --profile     # also trace a few frames (profile.txt)
+
+Phases (each one fails the run on error):
+  1. the card's name and power limit, torch / CUDA versions, and the build
+     of every kernel from ``doubletake_tpu_torch/csrc`` (one nvcc each, in
+     parallel) into ``build/torch_kernels``;
+  2. K1, the fused feature volume, against its plain version at the flagship
+     shapes (b=1, 7 source views, 96x128x16 features, 64 planes) with a
+     partly valid hint, at the same shapes without the hint MLP (the
+     matching MLP's own scores), and at a small odd shape without a hint:
+     max |score difference| <= 1e-3 (both float32; the kernel sums the MLP
+     products in another order);
+  3. K2, the TSDF integrate, against its plain version on the synthetic
+     room's 304x200x152 volume for three chained frames of rendered depth
+     and one with NaN pixels, and on a small odd volume: values and weights
+     bit-equal;
+  4. the main path: ``runners.incremental.run`` on a synthetic scan at
+     512x384 with the flagship model configuration (EfficientNetV2-S,
+     ResNet matching encoder, hint feature volume, U-Net++, 64 planes, 8
+     views, fast cost volume), fusion at 0.02 m to 3.5 m with extended
+     truncation, random weights from a seeded generator, over the scan's 33
+     frames; both kernels must launch once per frame; maps/s is the frames
+     over the scan loop's wall time (loader waits included), beside the
+     inverse of the mean per-frame step time;
+  5. whole-step parity on the card: the first frames through the kernel path
+     and through the plain path (plain volume, plain integrate) with the
+     same weights: s0 depth p99 <= 1e-2 m and Abs-Diff delta <= 5e-4 m;
+  6. kernel timings (CUDA events, warm, median) beside each kernel's bound.
+
+The last lines are the nvidia-smi line, one JSON line ``{"kernels": [...]}``
+and ``{"ok": true, "device": {...}}``. Everything measured also goes to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+FP32_PEAK = 67e12     # H100 SXM float32 outside the tensor cores, FLOP/s
+HBM_RATE = 3.35e12    # H100 SXM HBM3, bytes/s
+K1_TOL = 1e-3
+PARITY_P99_LIMIT = 1e-2
+ABS_DIFF_DELTA_LIMIT = 5e-4
+PARITY_FRAMES = 4
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+
+
+def log(msg):
+    print(f"[chip_smoke {time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
+def median_ms(fn, reps=10, warmup=2):
+    """Median of ``reps`` CUDA-event timings of fn() (each synchronised)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# ------------------------------------------------------------------- inputs
+
+
+def flagship_volume_inputs(device):
+    """K1 inputs at the flagship shapes: geometry from the synthetic scan's
+    first 8-view tuple, random features and MLP weights from seeds, and a
+    hint valid on ~60% of the pixels (NaN depth elsewhere)."""
+    import numpy as np
+    import torch
+
+    from doubletake_tpu_torch.datasets.synthetic import SyntheticDataset
+    from doubletake_tpu_torch.models.cost_volume import FeatureMeshHintVolume, generate_depth_planes
+    from doubletake_tpu_torch.models.layers import init_parameters
+    from doubletake_tpu_torch.ops.fused_volume import volume_geometry
+
+    ds = SyntheticDataset(split="test", image_height=384, image_width=512, num_frames=12)
+    scan, *frame_ids = ds.frame_tuples[0].split(" ")
+    poses = [ds.load_pose(scan, f) for f in frame_ids]            # (world_T_cam, cam_T_world)
+    K1 = ds.load_intrinsics(scan)["K_s1_b44"]
+    cur_cTw, src = poses[0][1], poses[1:]
+    src_T_cur = np.stack([s[1] @ poses[0][0] for s in src])[None].astype(np.float32)
+    cur_T_src = np.stack([cur_cTw @ s[0] for s in src])[None].astype(np.float32)
+    src_K = np.broadcast_to(K1, (1, 7, 4, 4)).astype(np.float32)
+    invK = np.linalg.inv(K1)[None].astype(np.float32)
+
+    g = torch.Generator().manual_seed(1)
+    h, w, c, k = 96, 128, 16, 7
+    cur = torch.randn((1, h, w, c), generator=g)
+    srcf = torch.randn((1, k, h, w, c), generator=g)
+    depth = torch.rand((1, h, w), generator=g) * 3.5 + 0.5
+    valid = torch.rand((1, h, w), generator=g) < 0.6
+    weight = torch.rand((1, h, w), generator=g)
+    hint = torch.stack([torch.where(valid, depth, torch.full_like(depth, float("nan"))),
+                        valid.float(), torch.where(valid, weight, torch.zeros_like(weight))], -1)
+
+    module = FeatureMeshHintVolume(num_depth_bins=64, num_views=k)
+    init_parameters(module, torch.Generator().manual_seed(2))
+    module = module.to(device).eval()
+    geo = volume_geometry(*(torch.from_numpy(x).to(device)
+                            for x in (src_K, src_T_cur, cur_T_src, invK)), h, w)
+    planes = generate_depth_planes(0.25, 5.0, 64, device)
+    to = lambda x: x.to(device).contiguous()   # noqa: E731
+    args = (to(cur), to(srcf), *geo, planes, module._layers(module.mlp),
+            module._layers(module.hint_mlp), to(hint))
+    return args
+
+
+def check_fused_volume(device):
+    import torch
+
+    from doubletake_tpu_torch.models.cost_volume import FeatureVolume, generate_depth_planes
+    from doubletake_tpu_torch.models.layers import init_parameters
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops.fused_volume import volume_geometry
+
+    args = flagship_volume_inputs(device)
+    hint = torch.nan_to_num(args[-1], nan=0.0)
+    with torch.no_grad():
+        kern = fv.fused_feature_volume(*args)
+        plain = fv.feature_volume_plain(*args[:-1], hint)
+    sync()
+    if not torch.isfinite(kern).all():
+        raise RuntimeError("K1: non-finite scores from the kernel")
+    err = float((kern - plain).abs().max())
+    log(f"K1 fused volume: max |kernel - plain| = {err:.3e} (limit {K1_TOL}), "
+        f"score range [{float(plain.min()):.3f}, {float(plain.max()):.3f}]")
+    if not err <= K1_TOL:
+        raise RuntimeError(f"K1 disagrees with its plain version: {err}")
+
+    # the matching MLP's scores themselves at the flagship shape (no hint
+    # MLP on top): views 4-6 take the kernel's second pass over the views,
+    # which only k > 4 reaches
+    with torch.no_grad():
+        raw_k = fv.fused_feature_volume(*args[:8])
+        raw_p = fv.feature_volume_plain(*args[:8])
+    sync()
+    err_raw = float((raw_k - raw_p).abs().max())
+    log(f"K1 at the flagship shape, no hint MLP: max |kernel - plain| = {err_raw:.3e}, "
+        f"score range [{float(raw_p.min()):.3f}, {float(raw_p.max()):.3f}]")
+    if not err_raw <= K1_TOL:
+        raise RuntimeError(f"K1 matching-MLP scores disagree with the plain version: {err_raw}")
+
+    # edges the flagship shape does not reach: a pixel count that leaves a
+    # partial 64-pixel tile, two views, no hint MLP
+    g = torch.Generator().manual_seed(3)
+    b, k, h, w, d = 2, 2, 25, 37, 8
+    module = FeatureVolume(num_depth_bins=d, num_views=k)
+    init_parameters(module, g)
+    module = module.to(device).eval()
+    pose = torch.eye(4).repeat(b, k, 1, 1)
+    pose[:, :, :3, 3] = torch.randn((b, k, 3), generator=g) * 0.2
+    K = torch.tensor([[20.0, 0, w / 2, 0], [0, 20.0, h / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    geo = volume_geometry(K.repeat(b, k, 1, 1).to(device), pose.to(device),
+                          torch.linalg.inv(pose).to(device), torch.linalg.inv(K)[None]
+                          .repeat(b, 1, 1).to(device), h, w)
+    small = (torch.randn((b, h, w, 16), generator=g).to(device),
+             torch.randn((b, k, h, w, 16), generator=g).to(device), *geo,
+             generate_depth_planes(0.25, 5.0, d, device), module._layers(module.mlp))
+    with torch.no_grad():
+        err_small = float((fv.fused_feature_volume(*small)
+                           - fv.feature_volume_plain(*small)).abs().max())
+    sync()
+    log(f"K1 at b={b}, k={k}, {h}x{w}, D={d}, no hint: max |kernel - plain| = {err_small:.3e}")
+    if not err_small <= K1_TOL:
+        raise RuntimeError(f"K1 disagrees with its plain version at an odd shape: {err_small}")
+    return {"max_abs_err": max(err, err_raw, err_small), "args": args}
+
+
+def synthetic_depth_frames(n, device):
+    """(depth (H, W), P (3, 4)) of n consecutive synthetic frames at depth
+    resolution (192x256), and the room's TSDF bounds."""
+    import numpy as np
+    import torch
+
+    from doubletake_tpu_torch.datasets.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(split="test", image_height=384, image_width=512, num_frames=40)
+    K0 = ds.load_intrinsics("synth0")["K_s0_b44"]
+    frames = []
+    for i in range(n):
+        depth, _, _ = ds.load_target_size_depth_and_mask("synth0", 2 * i)
+        _, cTw = ds.load_pose("synth0", 2 * i)
+        P = torch.from_numpy((K0 @ cTw)[:3].astype(np.float32))
+        frames.append((torch.from_numpy(depth[..., 0]).to(device), P.to(device)))
+    mn, mx = ds.get_gt_mesh_bounds("synth0")
+    bounds = {"xmin": mn[0], "xmax": mx[0], "ymin": mn[1], "ymax": mx[1],
+              "zmin": mn[2], "zmax": mx[2]}
+    return frames, bounds
+
+
+def integrate_kwargs(voxel=0.02):
+    trunc = 3.0 * voxel
+    return dict(voxel_size=voxel, min_depth=0.5, max_depth=3.5, truncation=trunc,
+                trunc_check=-trunc * 1.5, update_rate=2.5, max_weight=100.0)
+
+
+def check_integrate(device):
+    import torch
+
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.tools.tsdf import TSDF
+
+    frames, bounds = synthetic_depth_frames(3, device)
+    nan_depth = frames[-1][0].clone()
+    nan_depth[40:80, 60:120] = float("nan")
+    nan_depth[::7, ::5] = float("nan")
+    frames.append((nan_depth, frames[-1][1]))
+    vol = TSDF.from_bounds(bounds, 0.02, device=device)
+    kv, kw_ = vol.values.clone(), vol.weights.clone()
+    pv, pw = vol.values.clone(), vol.weights.clone()
+    kw = integrate_kwargs()
+    worst = 0
+    for depth, P in frames:
+        ig.fused_integrate(kv, kw_, depth, P, vol.origin, **kw)
+        pv, pw = ig.integrate_plain(pv, pw, depth, P, vol.origin, **kw)
+        sync()
+        bad = int((kv != pv).sum()) + int((kw_ != pw).sum())
+        worst = max(worst, bad)
+    log(f"K2 integrate on {tuple(vol.dims)} over {len(frames)} frames (last with NaNs): "
+        f"{worst} differing elements, {int((kw_ > 0).sum())} observed voxels")
+    if worst != 0:
+        raise RuntimeError(f"K2 differs from its plain version on {worst} elements")
+    if not float(kw_.max()) > 0:
+        raise RuntimeError("K2 fused nothing")
+    err = float(max((kv - pv).abs().max(), (kw_ - pw).abs().max()))
+
+    # a volume at the room's centre whose voxel count (odd dims, which
+    # from_bounds never makes) leaves a partial block of threads
+    dims, voxel = (43, 38, 35), 0.05
+    centre = torch.tensor([(bounds[f"{a}min"] + bounds[f"{a}max"]) / 2 for a in "xyz"])
+    origin = (centre - torch.tensor(dims) * voxel / 2).float().to(device)
+    ov = -torch.ones(dims, device=device)
+    ow = torch.zeros(dims, device=device)
+    depth, P = frames[0]
+    pv, pw = ig.integrate_plain(ov, ow, depth, P, origin, **integrate_kwargs(voxel))
+    ig.fused_integrate(ov, ow, depth, P, origin, **integrate_kwargs(voxel))
+    sync()
+    bad = int((ov != pv).sum()) + int((ow != pw).sum())
+    observed = int((ow > 0).sum())
+    log(f"K2 integrate on {dims}: {bad} differing elements, {observed} observed voxels")
+    if bad != 0 or observed == 0:
+        raise RuntimeError(f"K2 on the odd volume: {bad} differing elements, "
+                           f"{observed} observed voxels")
+    return {"max_abs_err": err, "frames": frames, "bounds": bounds, "dims": tuple(vol.dims)}
+
+
+# ---------------------------------------------------------------- main path
+
+
+def flagship_options(out_dir):
+    from doubletake_tpu_torch.options import Options
+
+    o = Options()
+    # configs/models/doubletake_model.yaml, set in code (no yaml needed)
+    o.name = "chip_smoke"
+    o.model_type = "cv_hint_depth_model"
+    o.feature_volume_type = "mlp_mesh_hint_feature_volume"
+    o.image_encoder_name = "efficientnet"
+    o.matching_encoder_type = "resnet"
+    o.depth_decoder_name = "unet_pp"
+    o.cv_encoder_type = "multi_scale_encoder"
+    o.loss_type = "log_l1"
+    o.fill_depth_hints = True
+    # the README's incremental command
+    o.device = "cuda"
+    o.dataset = "synthetic"
+    o.image_width, o.image_height = 512, 384
+    o.batch_size = 1
+    o.num_workers = 4
+    o.fast_cost_volume = True
+    o.run_fusion = True
+    o.fusion_resolution = 0.02
+    o.fusion_max_depth = 3.5
+    o.extended_neg_truncation = True
+    o.depth_fuser = "ours"
+    o.output_base_path = out_dir
+    o.random_seed = 0
+    return o
+
+
+def run_main_path(opts):
+    import torch
+
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.runners import common, incremental
+
+    model = common.init_or_load_params(opts, common.build_model(opts))
+    fv.fused_feature_volume.launches = 0
+    ig.fused_integrate.launches = 0
+    t0 = time.perf_counter()
+    res = incremental.run(opts, model=model)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"fused_volume": fv.fused_feature_volume.launches,
+                "integrate": ig.fused_integrate.launches}
+
+    scores = os.path.join(opts.output_base_path, opts.name, "incremental_default", "scores",
+                          "synth0_metrics.json")
+    with open(scores) as f:
+        json.load(f)
+    frames = len(dataset_from_opts(opts, split=opts.split))
+    fa = res["frame_avg"]
+    for key in ("abs_diff", "abs_rel", "a5", "frame_time", "hint_time", "model_time",
+                "fuse_time", "hint_coverage"):
+        if not (key in fa and fa[key] == fa[key] and abs(fa[key]) != float("inf")):
+            raise RuntimeError(f"main path: metric {key} missing or not finite")
+    if res["frames"] != frames:
+        raise RuntimeError(f"main path: {res['frames']} of {frames} frames ran")
+    summary = {
+        "frames": frames, "wall_s": wall, "launches": launches,
+        # frames over the scan loop's wall time, first batch to last sync:
+        # loader waits included, what a user's scan costs
+        "maps_per_s": frames / res["scan_time"],
+        # 1 / mean per-frame step time (device batch to the frame's sync):
+        # excludes the waits on the loader between frames
+        "step_maps_per_s": 1.0 / fa["frame_time"],
+        "frame_ms": fa["frame_time"] * 1e3, "hint_ms": fa["hint_time"] * 1e3,
+        "model_ms": fa["model_time"] * 1e3, "fuse_ms": fa["fuse_time"] * 1e3,
+        "hint_coverage": fa["hint_coverage"], "abs_diff": fa["abs_diff"],
+        "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if torch.cuda.is_available() else None),
+    }
+    log(f"main path: {frames} frames, {summary['maps_per_s']:.2f} maps/s over the scan loop, "
+        f"{summary['step_maps_per_s']:.2f} maps/s by mean step "
+        f"(frame {summary['frame_ms']:.1f} ms; device hint {summary['hint_ms']:.2f} / "
+        f"model {summary['model_ms']:.2f} / fuse {summary['fuse_ms']:.2f} ms), "
+        f"hint coverage {summary['hint_coverage']:.3f}, launches {launches}")
+    return model, summary
+
+
+def whole_step_parity(opts, model):
+    """The first frames through the kernel path and the plain path, chained,
+    same weights and starting volume."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from doubletake_tpu_torch.data.loader import DataLoader
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.ops.integrate import integrate_plain
+    from doubletake_tpu_torch.runners import common, incremental
+
+    device = torch.device(opts.device)
+    plain_model = copy.deepcopy(model)
+    plain_model.cost_volume.fast_cost_volume = False
+    ds = dataset_from_opts(opts, split=opts.split, include_full_res_depth=True,
+                           pass_frame_id=True)
+    loader = DataLoader(ds, batch_size=1, shuffle=False, num_workers=2)
+    vol_k, cfg = common.make_fuser(opts, ds, "synth0", device)
+    vol_p, _ = common.make_fuser(opts, ds, "synth0", device)
+    samples = common.resolve_raycast_samples(opts, vol_k.voxel_size, opts.fusion_max_depth)
+    step = incremental.make_step(model, cfg, 96, 128, samples, opts.fusion_max_depth, opts)
+    trunc = cfg.truncation_voxels * vol_p.voxel_size
+    kw = dict(voxel_size=vol_p.voxel_size, min_depth=cfg.min_depth, max_depth=cfg.max_depth,
+              truncation=trunc, trunc_check=-trunc * 1.5, update_rate=cfg.update_rate,
+              max_weight=cfg.max_weight)
+    rows = []
+    for i, (cur_np, src_np) in enumerate(loader):
+        if i == PARITY_FRAMES:
+            break
+        cur, src = common.device_batch(cur_np, src_np, device)
+        out_k, _, vol_k = step(vol_k, cur, src)
+        with torch.no_grad():
+            hint = incremental.render_hint(vol_p, cur, 96, 128, samples, opts.fusion_max_depth)
+            out_p = plain_model(cur, src, hint=hint, return_mask=True)
+            P = torch.matmul(cur["K_s0_b44"][0], cur["cam_T_world_b44"][0])[:3].contiguous()
+            vol_p.values, vol_p.weights = integrate_plain(
+                vol_p.values, vol_p.weights, out_p["depth_pred_s0_bhw1"][0, ..., 0].contiguous(),
+                P, vol_p.origin, **kw)
+        gt = torch.as_tensor(cur_np["full_res_depth_bhw1"]).to(device)
+        dk, dp = out_k["depth_pred_s0_bhw1"], out_p["depth_pred_s0_bhw1"]
+        p99 = float(np.percentile((dk - dp).abs().cpu().numpy(), 99))
+        delta = abs(float(common.frame_metrics(dk, gt)["abs_diff"][0])
+                    - float(common.frame_metrics(dp, gt)["abs_diff"][0]))
+        rows.append({"frame": i, "s0_p99_m": p99, "abs_diff_delta_m": delta})
+        log(f"parity frame {i}: s0 p99 {p99:.2e} m, Abs-Diff delta {delta:.2e} m")
+        if not (p99 <= PARITY_P99_LIMIT and delta <= ABS_DIFF_DELTA_LIMIT):
+            raise RuntimeError(f"whole-step parity failed at frame {i}: {rows[-1]}")
+    return rows
+
+
+def profile_main_step(opts, model, warm=2, frames=3):
+    """torch.profiler over a few warm frames of the main step: device busy
+    share of the wall time and device time by kernel, into
+    chiprun_out/profile.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from doubletake_tpu_torch.data.loader import DataLoader
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.runners import common, incremental
+
+    device = torch.device(opts.device)
+    ds = dataset_from_opts(opts, split=opts.split, pass_frame_id=True)
+    batches = []
+    for i, b in enumerate(DataLoader(ds, batch_size=1, shuffle=False, num_workers=2)):
+        if i == warm + frames:
+            break
+        batches.append(common.device_batch(*b, device))
+    vol, cfg = common.make_fuser(opts, ds, "synth0", device)
+    samples = common.resolve_raycast_samples(opts, vol.voxel_size, opts.fusion_max_depth)
+    step = incremental.make_step(model, cfg, 96, 128, samples, opts.fusion_max_depth, opts)
+    for cur, src in batches[:warm]:
+        step(vol, cur, src)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for cur, src in batches[warm:]:
+            step(vol, cur, src)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # the kernels and copies themselves (CPU ops also carry their kernels'
+    # device time, which would count it twice)
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    device_us = sum(dev_us(e) for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    summary = {
+        "frames": frames, "wall_ms_per_frame": wall_us / frames / 1e3,
+        "device_ms_per_frame": device_us / frames / 1e3,
+        "device_busy_share": device_us / wall_us,
+        "top": [{"name": e.key[:80], "device_ms_per_frame": dev_us(e) / frames / 1e3,
+                 "calls_per_frame": e.count / frames} for e in top],
+    }
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
+    log(f"profile: {summary['wall_ms_per_frame']:.1f} ms/frame wall, "
+        f"{summary['device_ms_per_frame']:.1f} ms/frame on the device "
+        f"(busy {summary['device_busy_share']:.2f})")
+    for row in summary["top"]:
+        log(f"  {row['device_ms_per_frame']:8.3f} ms  x{row['calls_per_frame']:.0f}  {row['name']}")
+    return summary
+
+
+# -------------------------------------------------------------- kernel line
+
+
+def time_kernels(k1, k2, launches):
+    import torch
+
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.tools.tsdf import TSDF
+
+    rows = []
+    # K1: one call computes the (1, 64, 96, 128) hint volume
+    args = k1["args"]
+    hint = torch.nan_to_num(args[-1], nan=0.0)
+    cur, src = args[0], args[1]
+    b, h, w, c = cur.shape
+    k, d = src.shape[1], args[6].shape[0]
+    (w1, _), _, _ = args[7]
+    nin, hid = w1.shape[1], w1.shape[0]
+    macs = b * d * h * w * (nin * hid + hid * hid + hid + 3 * 12 + 12 * 12 + 12)
+    mlp_tensors = [x for pair in args[7] + args[8] for x in pair]
+    bytes_k1 = nbytes(*args[:7], hint, *mlp_tensors) + b * d * h * w * 4
+    with torch.no_grad():
+        ms = median_ms(lambda: fv.fused_feature_volume(*args), reps=20)
+        plain_ms = median_ms(lambda: fv.feature_volume_plain(*args[:-1], hint), reps=5, warmup=1)
+    t_ops, t_bytes = 2 * macs / FP32_PEAK * 1e3, bytes_k1 / HBM_RATE * 1e3
+    rows.append({
+        "name": "fused_feature_volume", "route": "cuda",
+        "source": "doubletake_tpu_torch/csrc/fused_volume.cu",
+        "replaces": "doubletake_tpu/ops/pallas/fused_volume.py:511",
+        "launches": launches["fused_volume"], "max_abs_err": k1["max_abs_err"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+    })
+
+    # K2: one fusion step on the 304x200x152 volume with the third frame's
+    # depth. Which voxels update depends on the depth and the pose only, not
+    # on the volume's state, so repeated launches do the same work.
+    frames, bounds = k2["frames"], k2["bounds"]
+    vol = TSDF.from_bounds(bounds, 0.02, device="cuda")
+    kw = integrate_kwargs()
+    depth, P = frames[2]
+    _, first_w = ig.integrate_plain(vol.values, vol.weights, depth, P, vol.origin, **kw)
+    changed = int((first_w > 0).sum())
+    n_vox = vol.values.numel()
+    # bytes this run needs: the depth image, and each updated voxel's value
+    # and weight read and written once; operations: ~24 to project and test
+    # every voxel, ~16 more to update one
+    bytes_k2 = nbytes(depth, P, vol.origin) + changed * 16
+    ops_k2 = 24 * n_vox + 16 * changed
+    ms = median_ms(lambda: ig.fused_integrate(vol.values, vol.weights, depth, P, vol.origin,
+                                              **kw), reps=20)
+    plain_ms = median_ms(lambda: ig.integrate_plain(vol.values, vol.weights, depth, P,
+                                                    vol.origin, **kw), reps=5, warmup=1)
+    t_ops, t_bytes = ops_k2 / FP32_PEAK * 1e3, bytes_k2 / HBM_RATE * 1e3
+    rows.append({
+        "name": "fused_integrate", "route": "cuda",
+        "source": "doubletake_tpu_torch/csrc/integrate.cu",
+        "replaces": "doubletake_tpu/ops/pallas/integrate.py:542",
+        "launches": launches["integrate"], "max_abs_err": k2["max_abs_err"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        "changed_voxels": changed, "voxels": n_vox,
+    })
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
+    return rows
+
+
+# --------------------------------------------------------------------- main
+
+
+def main(argv):
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the GPU port only",
+              file=sys.stderr)
+        return 2
+
+    from doubletake_tpu_torch.ops import build as kbuild
+    from doubletake_tpu_torch.options import Options
+    from doubletake_tpu_torch.runners import common
+
+    kernels_only = "--kernels-only" in argv
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+    opts = Options()
+    device = common.resolve_device(opts)   # cuda, TF32 off
+
+    t0 = time.perf_counter()
+    kbuild.build(["fused_volume", "integrate"])
+    build_s = time.perf_counter() - t0
+    log(f"built kernels in {build_s:.1f} s into {kbuild.BUILD_DIR}")
+    for name, text in kbuild.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  nvcc {name}: {line.strip()}")
+
+    results = {"card": smi, "kind": kind, "torch": torch.__version__,
+               "cuda": torch.version.cuda, "build_s": build_s,
+               "nvcc": kbuild.build_logs}
+    k1 = check_fused_volume(device)
+    k2 = check_integrate(device)
+    results["k1_max_abs_err"] = k1["max_abs_err"]
+    results["k2_max_abs_err"] = k2["max_abs_err"]
+
+    if not kernels_only:
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(OUT_DIR)) as tmp:
+            opts = flagship_options(tmp)
+            model, main_summary = run_main_path(opts)
+            results["main_path"] = main_summary
+            for name, n in main_summary["launches"].items():
+                if n != main_summary["frames"]:
+                    raise RuntimeError(f"main path: {name} launched {n} times over "
+                                       f"{main_summary['frames']} frames")
+            results["parity"] = whole_step_parity(opts, model)
+            if "--profile" in argv:
+                results["profile"] = profile_main_step(opts, model)
+        kernels = time_kernels(k1, k2, main_summary["launches"])
+    else:
+        # the main path did not run: its launch counts were not measured
+        kernels = time_kernels(k1, k2, {"fused_volume": None, "integrate": None})
+    results["kernels"] = kernels
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(results, f, indent=1)
+    if kernels_only:
+        print(json.dumps({"kernels": kernels}))
+        return 0
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

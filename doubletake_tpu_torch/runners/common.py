@@ -1,0 +1,173 @@
+"""Shared runner infrastructure: device selection, model construction and
+weights, the metric protocol (nearest upsample to full-res GT, valid > 0.5 m)
+and the fuser.
+
+Protocol parity with the reference eval scripts (test_no_hint.py:177-212,
+test_incremental.py:290-326): predictions are nearest-upsampled to the
+full-res GT depth, masked to GT > 0.5 m (and finite), and averaged per
+frame, per scene, and overall via ResultsAverager.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Tuple
+
+import torch
+
+from doubletake_tpu_torch.checkpoints.convert import load_weights
+from doubletake_tpu_torch.models.depth_model import get_model_class
+from doubletake_tpu_torch.models.layers import init_parameters
+from doubletake_tpu_torch.ops.resize import interpolate_nearest
+from doubletake_tpu_torch.options import Options
+from doubletake_tpu_torch.tools.tsdf import TSDF, FusionConfig, auto_raycast_samples
+from doubletake_tpu_torch.utils.metrics import compute_depth_metrics_batched
+
+EVAL_MIN_DEPTH = 0.5  # valid GT depth threshold (test_no_hint.py:184)
+
+# keys the step consumes
+CUR_KEYS = ("image_bhw3", "cam_T_world_b44", "world_T_cam_b44", "invK_s1_b44",
+            "K_s0_b44", "invK_s0_b44")
+SRC_KEYS = ("image_bkhw3", "cam_T_world_bk44", "world_T_cam_bk44", "K_s1_bk44")
+
+
+def resolve_device(opts: Options) -> torch.device:
+    """The device the runner works on. CUDA unless the caller asks for the
+    CPU; a CUDA request without a CUDA device raises (no silent fallback).
+    On CUDA, float32 convolutions and matmuls run in full float32 (cuDNN's
+    TF32 default would move EfficientNetV2-S by ~1e-3 relative)."""
+    device = torch.device(opts.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but no CUDA device is present; pass device='cpu' "
+                "explicitly to run on the CPU")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
+def build_model(opts: Options) -> torch.nn.Module:
+    """Construct the model from options (model registry parity), on
+    ``opts.device``, in eval mode, without weights (see init_or_load_params)."""
+    device = resolve_device(opts)
+    model_type = opts.model_type or opts.extra.get("model_type", "depth_model")
+    if opts.loss_type != "log_l1":
+        raise ValueError(f"loss_type: {opts.loss_type} unknown")
+    if opts.cv_encoder_type != "multi_scale_encoder":
+        raise ValueError(f"cv_encoder_type: {opts.cv_encoder_type} unknown")
+    model = get_model_class(model_type)(
+        image_encoder_name=opts.image_encoder_name,
+        depth_decoder_name=opts.depth_decoder_name,
+        feature_volume_type=opts.feature_volume_type,
+        matching_encoder_type=opts.matching_encoder_type,
+        matching_scale=opts.matching_scale,
+        matching_num_depth_bins=opts.matching_num_depth_bins,
+        matching_feature_dims=opts.matching_feature_dims,
+        model_num_views=opts.model_num_views,
+        min_matching_depth=opts.min_matching_depth,
+        max_matching_depth=opts.max_matching_depth,
+        plane_chunk=opts.plane_chunk,
+        fast_cost_volume=opts.fast_cost_volume,
+        compute_dtype=opts.compute_dtype,
+    )
+    return model.to(device).eval()
+
+
+def init_or_load_params(opts: Options, model: torch.nn.Module) -> torch.nn.Module:
+    """Load weights from opts.load_weights_from_checkpoint (a reference
+    ``.ckpt`` or a JAX-package npz, through the weights bridge), or
+    initialise from a generator seeded with opts.random_seed."""
+    path = opts.load_weights_from_checkpoint
+    if path and os.path.exists(path):
+        model.load_state_dict(load_weights(path))
+        return model
+    device = next(model.parameters()).device
+    generator = torch.Generator().manual_seed(opts.random_seed)
+    model.cpu()
+    init_parameters(model, generator)
+    return model.to(device)
+
+
+def depth_for_fusion(opts: Options, out):
+    """Depth fed to the fuser, honoring mask_pred_depth (invalidate pixels
+    with no valid MVS info) and fusion_use_raw_lowest_cost (fuse the cost
+    volume argmax) — reference test_no_hint.py:214-240."""
+    depth = out["depth_pred_s0_bhw1"]
+    if opts.fusion_use_raw_lowest_cost:
+        depth = interpolate_nearest(out["lowest_cost_bhw"][..., None], depth.shape[1:3])
+    if opts.mask_pred_depth:
+        mask = out["overall_mask_bhw"][..., None].float()
+        m = interpolate_nearest(mask, depth.shape[1:3]) > 0.5
+        depth = torch.where(m, depth, torch.full_like(depth, -1.0))
+    return depth
+
+
+def finalize_tsdf(opts: Options, tsdf: TSDF) -> TSDF:
+    """Pre-export trim: zero low-confidence voxels (reference
+    fusers_helper.py:468-469, trim_tsdf_using_confience), in place."""
+    if opts.trim_tsdf_using_confience:
+        tsdf.values.masked_fill_(tsdf.weights < 0.02, 0.0)
+    return tsdf
+
+
+def device_batch(cur_np: Dict, src_np: Dict, device):
+    cur = {k: torch.as_tensor(cur_np[k]).to(device) for k in CUR_KEYS if k in cur_np}
+    src = {k: torch.as_tensor(src_np[k]).to(device) for k in SRC_KEYS if k in src_np}
+    return cur, src
+
+
+def frame_metrics(depth_pred_bhw1, full_gt_bhw1, mult_a: bool = True):
+    """Reference metric protocol: nearest-upsample pred to full-res GT,
+    mask GT finite and > 0.5 m. Returns dict of per-frame (B,) tensors."""
+    gt_hw = full_gt_bhw1.shape[1:3]
+    pred_up = interpolate_nearest(depth_pred_bhw1, gt_hw)
+    b = full_gt_bhw1.shape[0]
+    gt = full_gt_bhw1.reshape(b, -1)
+    pred = pred_up.reshape(b, -1)
+    valid = torch.isfinite(gt) & (gt > EVAL_MIN_DEPTH)
+    return compute_depth_metrics_batched(gt, pred, valid, mult_a=mult_a)
+
+
+def scene_bounds_for_fusion(dataset, scan_id, max_extent: float = 10.0):
+    """TSDF bounds: dataset GT bounds when available (get_fuser parity —
+    fusers_helper.py:214-260 uses the GT mesh), else fixed +-max_extent."""
+    if hasattr(dataset, "get_gt_mesh_bounds"):
+        mn, mx = dataset.get_gt_mesh_bounds(scan_id)
+        return {"xmin": float(mn[0]), "xmax": float(mx[0]),
+                "ymin": float(mn[1]), "ymax": float(mx[1]),
+                "zmin": float(mn[2]), "zmax": float(mx[2])}
+    return {"xmin": -max_extent, "xmax": max_extent, "ymin": -max_extent,
+            "ymax": max_extent, "zmin": -max_extent, "zmax": max_extent}
+
+
+def make_fuser(opts: Options, dataset, scan_id, device) -> Tuple[TSDF, FusionConfig]:
+    """Score fuser ("ours"): resolution and max depth from opts (0.02 m /
+    3.5 m for published scores), extended negative truncation optional.
+    The color-fusing Open3D fusers are not ported yet."""
+    if opts.depth_fuser != "ours" or opts.fuse_color:
+        raise ValueError(f"depth_fuser {opts.depth_fuser!r} / fuse_color not ported yet")
+    tsdf = TSDF.from_bounds(scene_bounds_for_fusion(dataset, scan_id),
+                            opts.fusion_resolution, device=device)
+    cfg = FusionConfig(min_depth=EVAL_MIN_DEPTH, max_depth=opts.fusion_max_depth,
+                       extended_neg_truncation=opts.extended_neg_truncation)
+    return tsdf, cfg
+
+
+def resolve_raycast_samples(opts: Options, voxel_size: float, max_depth: float) -> int:
+    """opts.raycast_samples, with 0 meaning the band-derived minimal safe
+    budget (tools.tsdf.auto_raycast_samples)."""
+    if opts.raycast_samples:
+        return opts.raycast_samples
+    return auto_raycast_samples(voxel_size, EVAL_MIN_DEPTH, max_depth,
+                                opts.extended_neg_truncation)
+
+
+def output_dirs(opts: Options, mode: str):
+    base = os.path.join(opts.output_base_path, opts.name, mode)
+    scores = os.path.join(base, "scores")
+    meshes = os.path.join(base, "meshes")
+    os.makedirs(scores, exist_ok=True)
+    os.makedirs(meshes, exist_ok=True)
+    return base, scores, meshes
+

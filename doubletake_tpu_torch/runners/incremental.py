@@ -1,0 +1,228 @@
+"""Incremental (online) DoubleTake evaluation — the flagship mode.
+
+Reference: src/doubletake/test_incremental.py; the JAX package's
+runners/incremental.py. Per scan, frames arrive in order; each frame
+raycasts the running TSDF for a hint (depth + confidence, invalid below
+weight 0.025 — :244), runs the model with the hint injected into the cost
+volume, computes metrics, and fuses the predicted depth into the volume.
+The first frame needs no special case: an empty volume raycasts to an
+all-invalid hint.
+
+The hint is rendered at image/4 with the depth-resolution intrinsics
+``invK_s0``, exactly as the JAX runner does, so the two packages agree.
+
+The volume lives on the device for the whole scan and the fuse step updates
+it in place. Each frame's hint / model / fuse times are taken with CUDA
+events on the GPU (host clock on the CPU) and stored with its metrics. Mesh
+export is not ported yet: the run saves the TSDF npz and the score JSONs.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import OrderedDict
+
+import torch
+
+from doubletake_tpu_torch.data.loader import DataLoader
+from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+from doubletake_tpu_torch.options import Options
+from doubletake_tpu_torch.runners import common
+from doubletake_tpu_torch.tools.tsdf import integrate_depth, raycast
+from doubletake_tpu_torch.utils.metrics import ResultsAverager
+
+HINT_WEIGHT_THRESHOLD = 0.025  # test_incremental.py:244
+FEAT_CACHE_MAX = 64            # keyframe tuples reach back a few dozen frames
+
+
+class StageClock:
+    """Stage boundaries of one frame: CUDA events on a GPU (read after the
+    frame's synchronisation, so timing adds no sync), host clock on the CPU."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks = []
+
+    def mark(self, name: str):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append((name, ev))
+        else:
+            self.marks.append((name, time.perf_counter()))
+
+    def elapsed_ms(self):
+        """{stage: ms} between consecutive marks; call after a synchronize."""
+        out = {}
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+        return out
+
+
+def render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth):
+    """Hint dict for the model from the running volume (matching resolution)."""
+    hint_d, hint_wt, hint_v = raycast(
+        tsdf, cur["world_T_cam_b44"][0], cur["invK_s0_b44"][0], hint_h, hint_w,
+        min_depth=common.EVAL_MIN_DEPTH, max_depth=fusion_max_depth,
+        num_samples=raycast_samples,
+    )
+    valid = hint_v & (hint_wt >= HINT_WEIGHT_THRESHOLD)
+    return {
+        "depth_hint_bhw1": torch.where(valid, hint_d, torch.full_like(hint_d, float("nan")))[None, ..., None],
+        "hint_mask_bhw1": valid[None, ..., None],
+        "sampled_weights_bhw1": torch.where(valid, hint_wt, torch.zeros_like(hint_wt))[None, ..., None],
+    }
+
+
+def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opts=None):
+    """Per-frame step: raycast hint -> forward -> fuse (in place).
+
+    ``step(tsdf, cur, src, src_feats=None, clock=None)`` returns (out, hint,
+    tsdf). ``src_feats`` are the src views' cached matching features (every
+    src view of a sequential scan was the cur frame earlier), so the
+    matching encoder runs on one image instead of model_num_views.
+    """
+
+    @torch.no_grad()
+    def step(tsdf, cur, src, src_feats=None, clock=None):
+        if clock is not None:
+            clock.mark("start")
+        hint = render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth)
+        if clock is not None:
+            clock.mark("hint")
+        out = model(cur, src, hint=hint, return_mask=True, src_matching_feats=src_feats)
+        if clock is not None:
+            clock.mark("model")
+        depth = common.depth_for_fusion(opts, out) if opts is not None else out["depth_pred_s0_bhw1"]
+        integrate_depth(tsdf, depth[0], cur["cam_T_world_b44"][0], cur["K_s0_b44"][0], cfg)
+        if clock is not None:
+            clock.mark("fuse")
+        return out, hint, tsdf
+
+    return step
+
+
+def make_split_steps(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth,
+                     opts=None):
+    """Separate hint / forward / fuse callables, for timing each stage on
+    its own (the reference's model_time / hint_time split,
+    test_incremental.py:273-288)."""
+
+    @torch.no_grad()
+    def hint_step(tsdf, cur):
+        return render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth)
+
+    @torch.no_grad()
+    def forward_step(cur, src, hint, src_feats=None):
+        return model(cur, src, hint=hint, return_mask=True, src_matching_feats=src_feats)
+
+    @torch.no_grad()
+    def fuse_step(tsdf, out, cur):
+        depth = common.depth_for_fusion(opts, out) if opts is not None else out["depth_pred_s0_bhw1"]
+        return integrate_depth(tsdf, depth[0], cur["cam_T_world_b44"][0], cur["K_s0_b44"][0], cfg)
+
+    return hint_step, forward_step, fuse_step
+
+
+def unique_scans(dataset):
+    seen, scans = set(), []
+    for line in dataset.frame_tuples:
+        scan = line.split(" ")[0]
+        if scan not in seen:
+            seen.add(scan)
+            scans.append(scan)
+    return scans
+
+
+def run(opts: Options, model=None):
+    """Run the incremental evaluation; returns the frame and scene averages.
+
+    ``model``: an already built and weighted model (else built from opts and
+    initialised or loaded by ``common.init_or_load_params``).
+    """
+    if "hint" not in opts.feature_volume_type:
+        raise ValueError("incremental mode needs a hint model (mlp_mesh_hint_feature_volume)")
+    if opts.raycast_mip:
+        raise ValueError("raycast_mip is not ported yet")
+    device = common.resolve_device(opts)
+    _, scores_dir, meshes_dir = common.output_dirs(opts, f"incremental_{opts.frame_tuple_type}")
+    if model is None:
+        model = common.init_or_load_params(opts, common.build_model(opts))
+    model.eval()
+
+    probe = dataset_from_opts(opts, split=opts.split, include_full_res_depth=True)
+    scans = unique_scans(probe)
+    if opts.single_debug_scan_id:
+        scans = [s for s in scans if s == opts.single_debug_scan_id]
+
+    # hints at matching resolution (image / 4): the cost volume uses them
+    # nearest-resized to matching resolution anyway
+    hint_h, hint_w = opts.image_height // 4, opts.image_width // 4
+
+    all_frame_avg = ResultsAverager(opts.name, "frame avg")
+    scene_avg = ResultsAverager(opts.name, "scene avg")
+    # wall time of the scan loops, from each scan's first batch to its last
+    # frame's sync: unlike the per-frame times it includes loader waits
+    frames, scan_time = 0, 0.0
+
+    for scan_id in scans:
+        ds = dataset_from_opts(opts, split=opts.split, limit_to_scan_id=scan_id,
+                               include_full_res_depth=True, pass_frame_id=True)
+        # batch size 1 is mandatory: frames are sequential (reference :25)
+        loader = DataLoader(ds, batch_size=1, shuffle=False, num_workers=min(4, opts.num_workers))
+        tsdf, cfg = common.make_fuser(opts, ds, scan_id, device)
+        samples = common.resolve_raycast_samples(opts, tsdf.voxel_size, opts.fusion_max_depth)
+        step = make_step(model, cfg, hint_h, hint_w, samples, opts.fusion_max_depth, opts=opts)
+
+        feat_cache: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+        scan_metrics = ResultsAverager(opts.name, f"scan {scan_id}")
+        scan_t0 = None
+        for cur_np, src_np in loader:
+            if scan_t0 is None:
+                scan_t0 = time.perf_counter()
+            cur, src = common.device_batch(cur_np, src_np, device)
+            t0 = time.perf_counter()
+            ids = src_np["frame_id_string"][0]
+            src_feats = None
+            if all(i in feat_cache for i in ids):
+                src_feats = torch.stack([feat_cache[i] for i in ids])[None]
+            clock = StageClock(device)
+            out, hint, tsdf = step(tsdf, cur, src, src_feats=src_feats, clock=clock)
+            fid = cur_np["frame_id_string"][0]
+            feat_cache[fid] = out["matching_feats_bhwc"][0]
+            feat_cache.move_to_end(fid)
+            while len(feat_cache) > FEAT_CACHE_MAX:
+                feat_cache.popitem(last=False)
+
+            metrics = common.frame_metrics(
+                out["depth_pred_s0_bhw1"], torch.as_tensor(cur_np["full_res_depth_bhw1"]).to(device))
+            fm = {k: float(v[0]) for k, v in metrics.items()}   # synchronises
+            fm["frame_time"] = time.perf_counter() - t0
+            stages = clock.elapsed_ms()
+            fm["hint_time"] = stages["hint"] / 1e3
+            fm["model_time"] = stages["model"] / 1e3
+            fm["fuse_time"] = stages["fuse"] / 1e3
+            fm["hint_coverage"] = float(hint["hint_mask_bhw1"].float().mean())
+            scan_metrics.update_results(fm)
+            all_frame_avg.update_results(fm)
+            frames += 1
+        if scan_t0 is not None:
+            scan_time += time.perf_counter() - scan_t0
+
+        scan_metrics.compute_final_average()
+        scan_metrics.output_json(os.path.join(scores_dir, f"{scan_id.replace('/', '_')}_metrics.json"))
+        scene_avg.update_results(scan_metrics.final_metrics)
+        tsdf = common.finalize_tsdf(opts, tsdf)
+        tsdf.save(os.path.join(meshes_dir, f"{scan_id.replace('/', '_')}_tsdf.npz"))
+
+    all_frame_avg.compute_final_average()
+    scene_avg.compute_final_average()
+    all_frame_avg.output_json(os.path.join(scores_dir, "all_frame_avg_metrics.json"))
+    scene_avg.output_json(os.path.join(scores_dir, "scene_avg_metrics.json"))
+    print("\nScene averages:")
+    scene_avg.pretty_print_results()
+    print("\nFrame averages:")
+    all_frame_avg.pretty_print_results()
+    return {"frame_avg": all_frame_avg.final_metrics, "scene_avg": scene_avg.final_metrics,
+            "frames": frames, "scan_time": scan_time}

@@ -1,0 +1,250 @@
+"""TSDF volume, fusion and hint raycasting on torch tensors.
+
+Counterpart of ``doubletake_tpu.tools.tsdf`` (reference scene state:
+src/doubletake/tools/tsdf.py):
+
+  * ``TSDF`` — a dense, bounded (X, Y, Z) values/weights pair (values init
+    -1, weights 0) with its world-space origin and voxel size; ``save`` and
+    ``load`` use the JAX package's npz format, so volumes pass between the
+    two packages.
+  * ``integrate_depth`` — TSDFFuser.integrate_depth math (tsdf.py:414-558):
+    nearest depth sampling, InfiniTAM confidence, truncation 3 voxels (1.5x
+    extended negative truncation optional), update_rate 2.5 / max weight
+    100, weights clamped to 1. It runs ``ops.integrate.fused_integrate``:
+    the CUDA kernel for a CUDA volume, the dense plain version on the CPU,
+    and updates the volume IN PLACE (the JAX runner donates the volume).
+  * ``raycast`` — the hint renderer: a dense coarse-then-fine march along
+    camera z to the first observed + -> - zero crossing, linear
+    refinement, and the trilinear fusion weight at the surface. Plain
+    torch, as the JAX raycast is plain XLA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from doubletake_tpu_torch.ops.integrate import fused_integrate
+from doubletake_tpu_torch.utils.geometry import linspace01
+
+VOX_MOD = 8  # volume dims rounded up to multiples of 8 (tsdf.py:59)
+
+
+@dataclasses.dataclass
+class TSDF:
+    """Dense TSDF volume. values/weights: (X, Y, Z) float32; origin: (3,)
+    world min corner."""
+
+    values: torch.Tensor
+    weights: torch.Tensor
+    origin: torch.Tensor
+    voxel_size: float
+
+    @property
+    def dims(self):
+        return tuple(self.values.shape)
+
+    @classmethod
+    def from_bounds(cls, bounds: dict, voxel_size: float, device="cpu"):
+        """Create a volume covering bounds (tsdf.py:122-154)."""
+        dims = []
+        for axis in ("x", "y", "z"):
+            extent = bounds[f"{axis}max"] - bounds[f"{axis}min"]
+            dims.append(int(np.ceil(extent / voxel_size / VOX_MOD)) * VOX_MOD)
+        origin = torch.tensor([bounds["xmin"], bounds["ymin"], bounds["zmin"]],
+                              dtype=torch.float32, device=device)
+        return cls(values=-torch.ones(dims, dtype=torch.float32, device=device),
+                   weights=torch.zeros(dims, dtype=torch.float32, device=device),
+                   origin=origin, voxel_size=voxel_size)
+
+    def save(self, path: str):
+        """npz with float16 tsdf_values / tsdf_weights, float32 origin and
+        the voxel size — the JAX package's format."""
+        np.savez_compressed(
+            path,
+            tsdf_values=self.values.detach().cpu().numpy().astype(np.float16),
+            tsdf_weights=self.weights.detach().cpu().numpy().astype(np.float16),
+            origin=self.origin.detach().cpu().numpy().astype(np.float32),
+            voxel_size=self.voxel_size,
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cpu"):
+        data = np.load(path)
+        if "tsdf_colors" in data:
+            raise ValueError(f"{path}: color volumes are not ported yet")
+        return cls(
+            values=torch.as_tensor(data["tsdf_values"].astype(np.float32), device=device),
+            weights=torch.as_tensor(data["tsdf_weights"].astype(np.float32), device=device),
+            origin=torch.as_tensor(data["origin"].astype(np.float32), device=device),
+            voxel_size=float(data["voxel_size"]),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionConfig:
+    """Fusion hyperparameters (TSDFFuser defaults, tsdf.py:347-363)."""
+
+    min_depth: float = 0.5
+    max_depth: float = 5.0
+    truncation_voxels: float = 3.0
+    max_weight: float = 100.0
+    update_rate: float = 2.5
+    extended_neg_truncation: bool = False
+
+
+def integrate_depth(tsdf: TSDF, depth_hw1, cam_T_world_44, K_44, config: FusionConfig,
+                    depth_mask_hw1=None) -> TSDF:
+    """Fuse one depth map into ``tsdf`` in place and return it."""
+    truncation = config.truncation_voxels * tsdf.voxel_size
+    if depth_mask_hw1 is not None:
+        depth_hw1 = torch.where(depth_mask_hw1, depth_hw1, torch.full_like(depth_hw1, -1.0))
+    P_34 = torch.matmul(K_44, cam_T_world_44)[:3].contiguous()
+    fused_integrate(
+        tsdf.values, tsdf.weights, depth_hw1[..., 0].contiguous(), P_34, tsdf.origin,
+        voxel_size=tsdf.voxel_size, min_depth=config.min_depth,
+        max_depth=config.max_depth, truncation=truncation,
+        trunc_check=-truncation * (1.5 if config.extended_neg_truncation else 1.0),
+        update_rate=config.update_rate, max_weight=config.max_weight,
+    )
+    return tsdf
+
+
+def auto_raycast_samples(voxel_size: float, min_depth: float, max_depth: float,
+                         extended_neg_truncation: bool = True,
+                         truncation_voxels: float = 3.0, safety: float = 0.85) -> int:
+    """Smallest raycast sample budget that cannot step over a surface: the
+    coarse step (budget // 4 samples over at most [min_depth, max_depth])
+    stays at ``safety`` x the observed-negative band behind a surface."""
+    band = truncation_voxels * (1.5 if extended_neg_truncation else 1.0)
+    sc = int(np.ceil((max_depth - min_depth) / (safety * band * voxel_size)))
+    return 4 * max(8, sc)
+
+
+def _sampler(tsdf: TSDF, ov, dv):
+    """Trilinear (value, weight, min contributing-corner weight) at camera
+    depths, for rays v(s) = ov + s * dv in voxel coordinates.
+
+    Values and weights are rounded through bf16 first, as the JAX package's
+    packed ray table stores them (tsdf.py:561). ``wmin`` is the smallest
+    weight among corners whose trilinear coefficient exceeds 1e-3:
+    unobserved voxels hold -1 at weight 0, so a blended weight can look
+    observed at the frustum edge while the blended value fakes a crossing.
+    """
+    X, Y, Z = tsdf.dims
+    vals = tsdf.values.reshape(-1)
+    wts = tsdf.weights.reshape(-1)
+    hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=vals.device) - 1e-4
+
+    def sample(zs):                                            # zs: (M, N)
+        v = ov[None] + zs[:, None, :] * dv[None]               # (M, 3, N)
+        v = torch.nan_to_num(v.permute(0, 2, 1), nan=0.0)      # (M, N, 3)
+        v = torch.minimum(v.clamp(min=0.0), hi)
+        v0 = torch.floor(v)
+        f = v - v0
+        i = v0.long()
+        base = (i[..., 0] * Y + i[..., 1]) * Z + i[..., 2]
+        fx, fy, fz = f.unbind(-1)
+        val = torch.zeros_like(fx)
+        wt = torch.zeros_like(fx)
+        wmin = torch.full_like(fx, float("inf"))
+        for a in (0, 1):
+            wx = fx if a else 1.0 - fx
+            for bb in (0, 1):
+                wy = fy if bb else 1.0 - fy
+                for e in (0, 1):
+                    wz = fz if e else 1.0 - fz
+                    coef = wz * wx * wy
+                    idx = base + (a * Y + bb) * Z + e
+                    cv = vals[idx].to(torch.bfloat16).float()
+                    cw = wts[idx].to(torch.bfloat16).float()
+                    val = val + cv * coef
+                    wt = wt + cw * coef
+                    wmin = torch.where(coef > 1e-3, torch.minimum(wmin, cw), wmin)
+        return val, wt, wmin
+
+    return sample
+
+
+def _first_crossing(vals, obs, extra=None):
+    """Index of the first (+ -> <= 0) pair between consecutive samples whose
+    both ends are observed, and whether one exists."""
+    cross = (vals[:-1] > 0) & (vals[1:] <= 0) & obs[:-1] & obs[1:]
+    if extra is not None:
+        cross = cross & extra
+    return cross.to(torch.uint8).argmax(0), cross.any(0)
+
+
+def raycast(tsdf: TSDF, world_T_cam_44, invK_44, height: int, width: int,
+            min_depth: float = 0.1, max_depth: float = 5.0, num_samples: int = 256,
+            weight_epsilon: float = 1e-4):
+    """Render hint depth + confidence by ray-marching the TSDF.
+
+    Each pixel's ray (pixel centres at +0.5) is clipped to the volume's
+    interior box and to [min_depth, max_depth], marched at
+    ``num_samples // 4`` coarse depths to bracket the first observed
+    + -> - crossing, re-marched with 8 fine samples across the bracket, and
+    the crossing refined linearly. Returns (depth_hw — z-depth, NaN where
+    no surface —, weight_hw — trilinear weight at the surface —, valid_hw).
+    """
+    assert num_samples >= 16, (
+        f"num_samples={num_samples}; resolve auto (0) with "
+        "runners.common.resolve_raycast_samples before calling raycast")
+    dev = tsdf.values.device
+    X, Y, Z = tsdf.dims
+    n = height * width
+    ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=dev),
+                            torch.arange(width, dtype=torch.float32, device=dev), indexing="ij")
+    pix = torch.stack([xs + 0.5, ys + 0.5, torch.ones_like(xs)], 0).reshape(3, n)
+    rays_cam = invK_44[:3, :3] @ pix
+    rays_world = world_T_cam_44[:3, :3] @ rays_cam
+
+    ov = ((world_T_cam_44[:3, 3] - tsdf.origin) / tsdf.voxel_size)[:, None]  # (3, 1)
+    dv = rays_world / tsdf.voxel_size                                          # (3, N)
+    dims = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=dev)[:, None]
+
+    # slab clip against the interior box [0, dims - 1] (trilinear support)
+    tiny = dv.abs() <= 1e-12
+    safe_dv = torch.where(tiny, torch.full_like(dv, 1e-12), dv)
+    ta = (0.0 - ov) / safe_dv
+    tb = (dims - ov) / safe_dv
+    inside = (ov >= 0.0) & (ov <= dims)
+    inf = torch.full_like(dv, float("inf"))
+    t_lo = torch.where(tiny, torch.where(inside, -inf, inf), torch.minimum(ta, tb))
+    t_hi = torch.where(tiny, torch.where(inside, inf, -inf), torch.maximum(ta, tb))
+    t_enter = t_lo.amax(0).clamp(min=min_depth)
+    t_exit = t_hi.amin(0).clamp(max=max_depth)
+    hit_box = t_exit > t_enter
+    t_exit = torch.maximum(t_exit, t_enter)
+
+    sc, sf = max(2, num_samples // 4), 8
+    zs = t_enter[None] + linspace01(sc, dev)[:, None] * (t_exit - t_enter)[None]  # (Sc, N)
+    dz = (t_exit - t_enter) / (sc - 1)
+    sample = _sampler(tsdf, ov, dv)
+
+    # coarse pass: bracket the first crossing
+    vals, _, wmins = sample(zs)
+    first, valid = _first_crossing(vals, wmins > weight_epsilon, hit_box[None])
+    v0 = vals[:-1].gather(0, first[None])[0]
+    v1 = vals[1:].gather(0, first[None])[0]
+    z_lo = zs.gather(0, first[None])[0]
+    depth_coarse = z_lo + v0 / torch.clamp(v0 - v1, min=1e-12) * dz
+
+    # fine pass: re-march the bracketing interval
+    zf = z_lo[None] + linspace01(sf, dev)[:, None] * dz[None]                    # (Sf, N)
+    fvals, _, fwmins = sample(zf)
+    ffirst, fvalid = _first_crossing(fvals, fwmins > weight_epsilon)
+    fv0 = fvals[:-1].gather(0, ffirst[None])[0]
+    fv1 = fvals[1:].gather(0, ffirst[None])[0]
+    ffrac = fv0 / torch.clamp(fv0 - fv1, min=1e-12)
+    depth_fine = zf.gather(0, ffirst[None])[0] + ffrac * dz / (sf - 1)
+    # the coarse ends bracket a sign change, so the fine pass almost always
+    # finds it again; otherwise keep the coarse interpolation
+    depth = torch.where(fvalid, depth_fine, depth_coarse)
+
+    _, surf_w, _ = sample(depth[None])
+    depth = torch.where(valid, depth, torch.full_like(depth, float("nan")))
+    weight = torch.where(valid, surf_w[0], torch.zeros_like(depth))
+    return depth.reshape(height, width), weight.reshape(height, width), valid.reshape(height, width)
