@@ -11,14 +11,17 @@ Phases (each one fails the run on error):
      parallel) into ``build/torch_kernels``;
   2. K1, the fused feature volume, against its plain version at the flagship
      shapes (b=1, 7 source views, 96x128x16 features, 64 planes) with a
-     partly valid hint, at the same shapes without the hint MLP (the
-     matching MLP's own scores), and at a small odd shape without a hint:
-     max |score difference| <= 1e-3 (both float32; the kernel sums the MLP
-     products in another order);
+     partly valid hint and without the hint MLP (the matching MLP's own
+     scores), at 61 planes (not a multiple of the planes a warp walks), at
+     k=8 with a hint and k=1 without, at a small odd shape (partial pixel
+     groups, b=2), and again after a weight is changed in place: max |score
+     difference| <= 1e-3 (the kernel takes each product as three bf16
+     products of hi/lo parts, in another order than the float32 plain path);
   3. K2, the TSDF integrate, against its plain version on the synthetic
      room's 304x200x152 volume for three chained frames of rendered depth
-     and one with NaN pixels, and on a small odd volume: values and weights
-     bit-equal;
+     and one with NaN pixels, on a small odd volume, with the camera inside
+     the room and with nothing in view (no element may change): values and
+     weights bit-equal;
   4. the main path: ``runners.incremental.run`` on a synthetic scan at
      512x384 with the flagship model configuration (EfficientNetV2-S,
      ResNet matching encoder, hint feature volume, U-Net++, 64 planes, 8
@@ -30,7 +33,9 @@ Phases (each one fails the run on error):
   5. whole-step parity on the card: the first frames through the kernel path
      and through the plain path (plain volume, plain integrate) with the
      same weights: s0 depth p99 <= 1e-2 m and Abs-Diff delta <= 5e-4 m;
-  6. kernel timings (CUDA events, warm, median) beside each kernel's bound.
+  6. kernel timings (CUDA events, warm, median) beside each kernel's bound;
+     K1's bound counts its tensor-core products at the bf16 rate, and
+     ``bound_fp32_simt_ms`` keeps the reference's MACs at the fp32 rate.
 
 The last lines are the nvidia-smi line, one JSON line ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Everything measured also goes to
@@ -47,6 +52,7 @@ import tempfile
 import time
 
 FP32_PEAK = 67e12     # H100 SXM float32 outside the tensor cores, FLOP/s
+BF16_TC_PEAK = 989e12  # H100 SXM bf16 tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12    # H100 SXM HBM3, bytes/s
 K1_TOL = 1e-3
 PARITY_P99_LIMIT = 1e-2
@@ -59,8 +65,11 @@ def log(msg):
     print(f"[chip_smoke {time.strftime('%H:%M:%S')}] {msg}", flush=True)
 
 
-def median_ms(fn, reps=10, warmup=2):
-    """Median of ``reps`` CUDA-event timings of fn() (each synchronised)."""
+def median_ms(fn, reps=10, warmup=2, inner=1):
+    """Median over ``reps`` CUDA-event timings of ``inner`` back-to-back
+    calls of fn(), per call (each timing synchronised). With inner > 1 the
+    host queues the next launch while the card runs the last, so a kernel
+    is timed without the host's time between launches."""
     import torch
 
     for _ in range(warmup):
@@ -71,10 +80,11 @@ def median_ms(fn, reps=10, warmup=2):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     times.sort()
     return times[len(times) // 2]
 
@@ -137,70 +147,125 @@ def flagship_volume_inputs(device):
     return args
 
 
-def check_fused_volume(device):
+def random_volume_case(device, b, k, h, w, d, hint, seed):
+    """K1 arguments at any shape: random features, poses within ~0.2 m of
+    the current view, a module with weights from ``seed`` (hint valid on
+    ~60% of the pixels, NaN depth elsewhere), and the module."""
     import torch
 
-    from doubletake_tpu_torch.models.cost_volume import FeatureVolume, generate_depth_planes
+    from doubletake_tpu_torch.models.cost_volume import (
+        FeatureMeshHintVolume,
+        FeatureVolume,
+        generate_depth_planes,
+    )
     from doubletake_tpu_torch.models.layers import init_parameters
-    from doubletake_tpu_torch.ops import fused_volume as fv
     from doubletake_tpu_torch.ops.fused_volume import volume_geometry
 
-    args = flagship_volume_inputs(device)
-    hint = torch.nan_to_num(args[-1], nan=0.0)
-    with torch.no_grad():
-        kern = fv.fused_feature_volume(*args)
-        plain = fv.feature_volume_plain(*args[:-1], hint)
-    sync()
-    if not torch.isfinite(kern).all():
-        raise RuntimeError("K1: non-finite scores from the kernel")
-    err = float((kern - plain).abs().max())
-    log(f"K1 fused volume: max |kernel - plain| = {err:.3e} (limit {K1_TOL}), "
-        f"score range [{float(plain.min()):.3f}, {float(plain.max()):.3f}]")
-    if not err <= K1_TOL:
-        raise RuntimeError(f"K1 disagrees with its plain version: {err}")
-
-    # the matching MLP's scores themselves at the flagship shape (no hint
-    # MLP on top): views 4-6 take the kernel's second pass over the views,
-    # which only k > 4 reaches
-    with torch.no_grad():
-        raw_k = fv.fused_feature_volume(*args[:8])
-        raw_p = fv.feature_volume_plain(*args[:8])
-    sync()
-    err_raw = float((raw_k - raw_p).abs().max())
-    log(f"K1 at the flagship shape, no hint MLP: max |kernel - plain| = {err_raw:.3e}, "
-        f"score range [{float(raw_p.min()):.3f}, {float(raw_p.max()):.3f}]")
-    if not err_raw <= K1_TOL:
-        raise RuntimeError(f"K1 matching-MLP scores disagree with the plain version: {err_raw}")
-
-    # edges the flagship shape does not reach: a pixel count that leaves a
-    # partial 64-pixel tile, two views, no hint MLP
-    g = torch.Generator().manual_seed(3)
-    b, k, h, w, d = 2, 2, 25, 37, 8
-    module = FeatureVolume(num_depth_bins=d, num_views=k)
+    g = torch.Generator().manual_seed(seed)
+    module = (FeatureMeshHintVolume if hint else FeatureVolume)(num_depth_bins=d, num_views=k)
     init_parameters(module, g)
     module = module.to(device).eval()
     pose = torch.eye(4).repeat(b, k, 1, 1)
     pose[:, :, :3, 3] = torch.randn((b, k, 3), generator=g) * 0.2
-    K = torch.tensor([[20.0, 0, w / 2, 0], [0, 20.0, h / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    f = 0.8 * w
+    K = torch.tensor([[f, 0, w / 2, 0], [0, f, h / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
     geo = volume_geometry(K.repeat(b, k, 1, 1).to(device), pose.to(device),
-                          torch.linalg.inv(pose).to(device), torch.linalg.inv(K)[None]
-                          .repeat(b, 1, 1).to(device), h, w)
-    small = (torch.randn((b, h, w, 16), generator=g).to(device),
-             torch.randn((b, k, h, w, 16), generator=g).to(device), *geo,
-             generate_depth_planes(0.25, 5.0, d, device), module._layers(module.mlp))
+                          torch.linalg.inv(pose).to(device),
+                          torch.linalg.inv(K)[None].repeat(b, 1, 1).to(device), h, w)
+    args = [torch.randn((b, h, w, 16), generator=g).to(device),
+            torch.randn((b, k, h, w, 16), generator=g).to(device), *geo,
+            generate_depth_planes(0.25, 5.0, d, device), module._layers(module.mlp)]
+    if hint:
+        depth = torch.rand((b, h, w), generator=g) * 3.5 + 0.5
+        valid = torch.rand((b, h, w), generator=g) < 0.6
+        weight = torch.rand((b, h, w), generator=g)
+        hint_t = torch.stack([torch.where(valid, depth, torch.full_like(depth, float("nan"))),
+                              valid.float(), torch.where(valid, weight, torch.zeros_like(weight))],
+                             -1)
+        args += [module._layers(module.hint_mlp), hint_t.to(device)]
+    return tuple(args), module
+
+
+def k1_error(args):
+    """max |kernel - plain| of one K1 call (the plain path reads the hint
+    with NaN depths zeroed, as the kernel's wrapper does)."""
+    import torch
+
+    from doubletake_tpu_torch.ops import fused_volume as fv
+
+    plain_args = args if len(args) < 10 else (*args[:-1], torch.nan_to_num(args[-1], nan=0.0))
     with torch.no_grad():
-        err_small = float((fv.fused_feature_volume(*small)
-                           - fv.feature_volume_plain(*small)).abs().max())
+        kern = fv.fused_feature_volume(*args)
+        plain = fv.feature_volume_plain(*plain_args)
     sync()
-    log(f"K1 at b={b}, k={k}, {h}x{w}, D={d}, no hint: max |kernel - plain| = {err_small:.3e}")
-    if not err_small <= K1_TOL:
-        raise RuntimeError(f"K1 disagrees with its plain version at an odd shape: {err_small}")
-    return {"max_abs_err": max(err, err_raw, err_small), "args": args}
+    if not torch.isfinite(kern).all():
+        raise RuntimeError("K1: non-finite scores from the kernel")
+    return float((kern - plain).abs().max()), plain, kern
+
+
+def check_fused_volume(device):
+    import torch
+
+    from doubletake_tpu_torch.models.cost_volume import generate_depth_planes
+    from doubletake_tpu_torch.ops import fused_volume as fv
+
+    args = flagship_volume_inputs(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    planes61 = generate_depth_planes(0.25, 5.0, 61, device)
+    run61, _ = fv.plane_schedule(1, 96 * 128, 61, sms)
+    if 61 % run61 == 0:
+        raise RuntimeError(f"K1 check: 61 planes are a multiple of the run ({run61})")
+    cases = [
+        # the flagship shape, with the hint MLP and a partly valid hint
+        ("flagship k=7 D=64 hint", args),
+        # the matching MLP's own scores at the flagship shape
+        ("flagship k=7 D=64 no hint", args[:8]),
+        # a plane count the warps' runs of planes do not divide
+        (f"flagship k=7 D=61 (run {run61}) hint", (*args[:6], planes61, *args[7:])),
+        ("k=8 96x128 D=64 hint", random_volume_case(device, 1, 8, 96, 128, 64, True, 4)[0]),
+        ("k=1 96x128 D=64 no hint", random_volume_case(device, 1, 1, 96, 128, 64, False, 5)[0]),
+    ]
+    # partial 64-pixel groups (925 pixels), two batch elements, two views
+    small, module = random_volume_case(device, 2, 2, 25, 37, 8, False, 3)
+    cases.append(("b=2 k=2 25x37 D=8 no hint", small))
+    errs = {}
+    for name, case in cases:
+        err, plain, _ = k1_error(case)
+        errs[name] = err
+        log(f"K1 {name}: max |kernel - plain| = {err:.3e} (limit {K1_TOL}), "
+            f"score range [{float(plain.min()):.3f}, {float(plain.max()):.3f}]")
+        if not err <= K1_TOL:
+            raise RuntimeError(f"K1 disagrees with its plain version at {name}: {err}")
+
+    # the packed weights follow an in-place change of a weight
+    _, _, before = k1_error(small)
+    with torch.no_grad():
+        module.mlp.linears()[1].weight.mul_(-1.0)
+    err, _, after = k1_error(small)
+    moved = float((after - before).abs().max())
+    log(f"K1 after an in-place weight change: max |kernel - plain| = {err:.3e}, "
+        f"scores moved by up to {moved:.3f}")
+    if not (err <= K1_TOL and moved > 1e-3):
+        raise RuntimeError(f"K1 did not pick up a changed weight: err {err}, moved {moved}")
+    errs["after weight change"] = err
+    return {"max_abs_err": max(errs.values()), "errors": errs, "args": args}
+
+
+def look_at(pos, fwd):
+    """cam_T_world (float32 numpy) of a camera at ``pos`` looking along ``fwd``."""
+    import numpy as np
+
+    fwd = np.asarray(fwd, float) / np.linalg.norm(fwd)
+    right = np.cross(fwd, [0.0, 0.0, 1.0])
+    right /= np.linalg.norm(right)
+    T = np.eye(4)
+    T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = right, np.cross(fwd, right), fwd, pos
+    return np.linalg.inv(T).astype(np.float32)
 
 
 def synthetic_depth_frames(n, device):
     """(depth (H, W), P (3, 4)) of n consecutive synthetic frames at depth
-    resolution (192x256), and the room's TSDF bounds."""
+    resolution (192x256), the room's TSDF bounds and the intrinsics K_s0."""
     import numpy as np
     import torch
 
@@ -217,7 +282,7 @@ def synthetic_depth_frames(n, device):
     mn, mx = ds.get_gt_mesh_bounds("synth0")
     bounds = {"xmin": mn[0], "xmax": mx[0], "ymin": mn[1], "ymax": mx[1],
               "zmin": mn[2], "zmax": mx[2]}
-    return frames, bounds
+    return frames, bounds, K0
 
 
 def integrate_kwargs(voxel=0.02):
@@ -232,7 +297,7 @@ def check_integrate(device):
     from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.tools.tsdf import TSDF
 
-    frames, bounds = synthetic_depth_frames(3, device)
+    frames, bounds, K0 = synthetic_depth_frames(3, device)
     nan_depth = frames[-1][0].clone()
     nan_depth[40:80, 60:120] = float("nan")
     nan_depth[::7, ::5] = float("nan")
@@ -273,6 +338,31 @@ def check_integrate(device):
     if bad != 0 or observed == 0:
         raise RuntimeError(f"K2 on the odd volume: {bad} differing elements, "
                            f"{observed} observed voxels")
+
+    # two more poses on the room's volume as the chained frames left it: the
+    # camera at the room's centre, and one outside looking away (nothing in
+    # view: no voxel may change, not even by a write of its own value)
+    centre = [(bounds[f"{a}min"] + bounds[f"{a}max"]) / 2 for a in "xyz"]
+    poses = {"inside": look_at(centre, (1.0, 0.3, -0.2)),
+             "away": look_at((bounds["xmax"] + 1.0, centre[1], centre[2]), (1.0, 0.0, 0.0))}
+    depth = frames[0][0]
+    for name, cTw in poses.items():
+        P = torch.from_numpy((K0 @ cTw)[:3].astype("float32")).to(device)
+        ov, ow = kv.clone(), kw_.clone()
+        pv, pw = ig.integrate_plain(ov, ow, depth, P, vol.origin, **kw)
+        ig.fused_integrate(ov, ow, depth, P, vol.origin, **kw)
+        sync()
+        bad = int((ov != pv).sum()) + int((ow != pw).sum())
+        updated = int((pw != kw_).sum())
+        changed = int((ov != kv).sum()) + int((ow != kw_).sum())
+        log(f"K2 integrate, camera {name}: {bad} differing elements, {updated} voxels "
+            f"updated, {changed} elements changed")
+        if bad != 0:
+            raise RuntimeError(f"K2 differs from its plain version, camera {name}: {bad}")
+        if name == "inside" and updated == 0:
+            raise RuntimeError("K2 with the camera inside the room updated nothing")
+        if name == "away" and (updated != 0 or changed != 0):
+            raise RuntimeError(f"K2 with nothing in view changed {changed} elements")
     return {"max_abs_err": err, "frames": frames, "bounds": bounds, "dims": tuple(vol.dims)}
 
 
@@ -319,6 +409,7 @@ def run_main_path(opts):
     from doubletake_tpu_torch.runners import common, incremental
 
     model = common.init_or_load_params(opts, common.build_model(opts))
+    torch.cuda.reset_peak_memory_stats()   # the main path's peak, not the kernel checks'
     fv.fused_feature_volume.launches = 0
     ig.fused_integrate.launches = 0
     t0 = time.perf_counter()
@@ -491,13 +582,21 @@ def time_kernels(k1, k2, launches):
     k, d = src.shape[1], args[6].shape[0]
     (w1, _), _, _ = args[7]
     nin, hid = w1.shape[1], w1.shape[0]
+    # the MLPs as the reference computes them (every channel for every plane)
     macs = b * d * h * w * (nin * hid + hid * hid + hid + 3 * 12 + 12 * 12 + 12)
+    # the kernel's tensor-core products: per plane 23 rows a view and W2,
+    # per pixel the c + 3 + 3k channels all planes share; three bf16
+    # products each (hi/lo split)
+    macs_tc = b * h * w * (d * (23 * k * hid + hid * hid) + (c + 3 + 3 * k) * hid)
+    # and outside the tensor cores: + plane * w, LeakyReLU . w3, hint MLP
+    macs_simt = b * d * h * w * (2 * hid + 3 * 12 + 12 * 12 + 12)
     mlp_tensors = [x for pair in args[7] + args[8] for x in pair]
     bytes_k1 = nbytes(*args[:7], hint, *mlp_tensors) + b * d * h * w * 4
     with torch.no_grad():
-        ms = median_ms(lambda: fv.fused_feature_volume(*args), reps=20)
+        ms = median_ms(lambda: fv.fused_feature_volume(*args), reps=20, inner=10)
         plain_ms = median_ms(lambda: fv.feature_volume_plain(*args[:-1], hint), reps=5, warmup=1)
-    t_ops, t_bytes = 2 * macs / FP32_PEAK * 1e3, bytes_k1 / HBM_RATE * 1e3
+    t_ops = max(3 * 2 * macs_tc / BF16_TC_PEAK, 2 * macs_simt / FP32_PEAK) * 1e3
+    t_bytes = bytes_k1 / HBM_RATE * 1e3
     rows.append({
         "name": "fused_feature_volume", "route": "cuda",
         "source": "doubletake_tpu_torch/csrc/fused_volume.cu",
@@ -505,6 +604,9 @@ def time_kernels(k1, k2, launches):
         "launches": launches["fused_volume"], "max_abs_err": k1["max_abs_err"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        # the PR 1 bound: the reference's MACs at the fp32 rate outside the
+        # tensor cores
+        "bound_fp32_simt_ms": 2 * macs / FP32_PEAK * 1e3,
     })
 
     # K2: one fusion step on the 304x200x152 volume with the third frame's
@@ -517,13 +619,15 @@ def time_kernels(k1, k2, launches):
     _, first_w = ig.integrate_plain(vol.values, vol.weights, depth, P, vol.origin, **kw)
     changed = int((first_w > 0).sum())
     n_vox = vol.values.numel()
+    culled = ig.block_cull_plain(tuple(vol.dims), tuple(depth.shape), P, vol.origin,
+                                 voxel_size=kw["voxel_size"], max_depth=kw["max_depth"])
     # bytes this run needs: the depth image, and each updated voxel's value
     # and weight read and written once; operations: ~24 to project and test
     # every voxel, ~16 more to update one
     bytes_k2 = nbytes(depth, P, vol.origin) + changed * 16
     ops_k2 = 24 * n_vox + 16 * changed
     ms = median_ms(lambda: ig.fused_integrate(vol.values, vol.weights, depth, P, vol.origin,
-                                              **kw), reps=20)
+                                              **kw), reps=20, inner=10)
     plain_ms = median_ms(lambda: ig.integrate_plain(vol.values, vol.weights, depth, P,
                                                     vol.origin, **kw), reps=5, warmup=1)
     t_ops, t_bytes = ops_k2 / FP32_PEAK * 1e3, bytes_k2 / HBM_RATE * 1e3
@@ -535,6 +639,7 @@ def time_kernels(k1, k2, launches):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
         "changed_voxels": changed, "voxels": n_vox,
+        "boxes_culled_share": float(culled.float().mean()),
     })
     for r in rows:
         log(f"{r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
@@ -582,6 +687,7 @@ def main(argv):
     k1 = check_fused_volume(device)
     k2 = check_integrate(device)
     results["k1_max_abs_err"] = k1["max_abs_err"]
+    results["k1_errors"] = k1["errors"]
     results["k2_max_abs_err"] = k2["max_abs_err"]
 
     if not kernels_only:

@@ -5,92 +5,320 @@
 // element b, depth plane d and matching pixel n it
 //   1. projects the plane point into each of the K source views and
 //      bilinearly samples their 16-channel features (grid_sample,
-//      align_corners=False, zeros padding, the torch coordinate chain
-//      g = 2px/w - 1; i = ((g + 1)w - 1)/2);
+//      align_corners=False, zeros padding);
 //   2. takes the masked dot with the current view's features;
-//   3. assembles the (26K + 20)-channel metadata vector in the checkpoint's
-//      channel order (202 channels at K = 7);
+//   3. builds the (26K + 20)-channel metadata vector (202 at K = 7);
 //   4. runs the matching MLP [nin, 128, 128, 1] (LeakyReLU 0.01) and the hint
 //      MLP [3, 12, 12, 1] on [score, |hint - plane| or -1, weight].
-// Only the (B, D, N) scores leave the kernel: the warped features and the
-// metadata matrix live in shared memory and registers.
+// Only the (B, D, N) scores leave the kernel.
 //
-// What bounds it on this card: the two MLP layers, 42,368 multiply-adds per
-// pixel and plane (66.9 GFLOP a frame at 512x384, 64 planes, 7 views),
-// against ~9 MB of inputs: operations, not bytes. This first kernel runs
-// them as fp32 FMA from a shared-memory tile (each thread a 4-pixel x
-// 8-unit register tile, weights through the read-only cache), so it is held
-// to the fp32 peak outside the tensor cores; wgmma/bf16 is later work.
+// What bounds it on this card: the two 128-wide MLP layers (~37k
+// multiply-adds per pixel and plane against ~10 MB of inputs), so
+// operations. They run on the tensor cores in bf16 with fp32 sums. One bf16
+// product keeps 8 bits and misses the port's fp32 contract (max error 1e-3
+// against feature_volume_plain), so every operand is split into
+// hi = bf16(x) and lo = bf16(x - hi) and each product is taken as
+// lo*hi + hi*lo + hi*hi (about 16 bits; lo*lo is below them): three bf16
+// products, still ~5x the fp32 SIMT rate per product.
+//
+// Design (ops/fused_volume.py packs the weights once per module):
+//   * persistent grid, one block per SM of two warpgroups (4 warps each);
+//     each block copies the per-plane layer-1 rows and W2 (bf16 hi and lo,
+//     in wgmma's no-swizzle K-major tiles, up to 160 KB) into shared memory
+//     once. The rest of the 227 KB holds each warp's u (below);
+//   * the MLP layers are wgmma (m64n128k16; layer 2 as two m64n64k16
+//     halves) with A from registers and B from shared memory: a warpgroup
+//     owns 64 pixels (16 a warp) and walks a run
+//     of planes (the wrapper picks the run so the items fill the
+//     warpgroups evenly). The tensor cores read each weight tile once per
+//     64 pixels, and run asynchronously while the warps gather the next
+//     view (mma.sync from registers, tried first, spent its time on the
+//     shared-memory loads of the weight fragments, 16 pixels at a time);
+//   * the 40 channels shared by all planes of a pixel (current features,
+//     current ray = r/|r|, pose metadata) go through W1 once per item into
+//     u = b1 + W x (mma.sync, weights from global memory: it runs once per
+//     item); each plane starts from u + plane * w_plane, so layer 1 per
+//     plane has K = 23 per view instead of 202 (161 at K = 7, 176 padded);
+//   * no metadata tile: the four lanes of a quad share two pixel rows; each
+//     computes the projection and gathers only the 4 channels of each tap
+//     that its A fragment holds (one 16-byte load a tap), so the warped
+//     features go from the gather straight into the MMA. Each view is one
+//     16-wide K step; its 7 scalars take half of a step shared with the next
+//     view. A view's taps are loaded a view ahead (the next plane's first
+//     view during the last one) and finished while the tensor cores work on
+//     the view before. The kernel is instantiated per view count K, so the
+//     view loop unrolls and the scalar pairing is fixed at compile time.
+//     (Loading two views ahead needs ~40 more registers than the 255 a
+//     thread has here and spilled: it measured slower.)
+//   * layer 1's accumulators become layer 2's A fragments in registers;
+//     layer 2 runs as two m64n64 halves, so only 32 accumulators are live
+//     beside them and the taps in flight; the hint MLP's weights are launch
+//     parameters, read as FMA operands.
 //
 // Not carried over from the TPU kernel: the MXU one-hot warps, the BAND row
-// window (and its zeros outside the band), bf16 source features and bf16
-// MLP operands, the (8, 128) row blocking. A Hopper thread reads its
-// bilinear taps directly as contiguous 64-byte NHWC rows, and everything is
-// fp32, so the kernel is held to the JAX XLA path.
-//
-// Layout: one block of 256 threads per (64-pixel tile, plane, batch).
+// window (and its zeros outside the band), single-pass bf16 operands and the
+// (8, 128) row blocking.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int C = 16;                      // matching feature channels
-constexpr int HID = 128;                   // matching MLP hidden width
-constexpr int HH = 12;                     // hint MLP hidden width
-constexpr int KMAX = 8;                    // most source views
-constexpr int TP = 64;                     // pixels per block
-constexpr int NT = 256;                    // threads per block
-constexpr int NIN_MAX = KMAX * C + C + 10 * KMAX + 4;
-constexpr size_t SMEM_BYTES = size_t(NIN_MAX + HID) * TP * sizeof(float);
+constexpr int C = 16;          // matching feature channels
+constexpr int HID = 128;       // matching MLP hidden width
+constexpr int NT16 = HID / 8;  // n8 column groups across the hidden width
+constexpr int HH = 12;         // hint MLP hidden width
+constexpr int KMAX = 8;        // most source views
+constexpr int WARPS = 8;       // two warpgroups
+constexpr int NT = WARPS * 32;
+constexpr int GROUPS = WARPS / 4;
+// the small-weights vector (ops/fused_volume.py VEC_*)
+constexpr int V_B1 = 0, V_WP = 128, V_B2 = 256, V_W3 = 384, V_B3 = 512;
+constexpr int VEC_LEN = 520;
+// one K step of B (16 x 128 bf16) as wgmma reads it without swizzle: 8 x 8
+// core matrices of 128 contiguous bytes, the two K halves of a column group
+// LBO bytes apart, column groups SBO bytes apart (ops/fused_volume.py
+// wgmma_tiles); hi then lo
+constexpr int TILE_BYTES = 16 * HID * 2;
+constexpr int LBO = 128, SBO = 256;
+// the invariant rows' mma.sync fragments (ops/fused_volume.py mma_fragments)
+constexpr int FRAG_STEP = NT16 * 32;
+
+// The hint MLP's weights, passed by value: a kernel parameter every lane
+// reads at the same address is an operand of the FMA itself, with no load
+// (ops/fused_volume.py HINT_LEN floats, this order).
+struct HintWeights {
+  float w1[3][HH];   // w1[i][j] = first layer's weight[j, i]
+  float b1[HH];
+  float w2[HH][HH];  // w2[i][j] = second layer's weight[j, i]
+  float b2[HH];
+  float w3[HH];
+  float b3;
+};
+
+__host__ __device__ constexpr int plane_steps(int k) { return k + (k + 1) / 2; }
+__host__ __device__ constexpr int inv_steps(int k) { return 1 + (3 + 3 * k + 15) / 16; }
+// weights (per-plane layer-1 rows, W2), small weights, each warp's u
+constexpr size_t smem_bytes(int k) {
+  return size_t(plane_steps(k) + HID / 16) * 2 * TILE_BYTES +
+         (VEC_LEN + WARPS * NT16 * 4 * 32) * sizeof(float);
+}
+static_assert(smem_bytes(KMAX) <= 232448, "more shared memory than a Hopper block has");
+static_assert(sizeof(HintWeights) == 217 * sizeof(float), "ops/fused_volume.py HINT_LEN");
 
 __device__ __forceinline__ float leaky(float x) { return x >= 0.f ? x : 0.01f * x; }
 
-__device__ __forceinline__ void add_tap(const float* __restrict__ feats, float xf, float yf,
-                                        float wt, int H, int W, float acc[C]) {
-  if (!(xf >= 0.f && xf <= float(W - 1) && yf >= 0.f && yf <= float(H - 1))) return;
-  const float4* row = reinterpret_cast<const float4*>(feats + (size_t(yf) * W + size_t(xf)) * C);
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// hi/lo bf16 pairs of (x, y): x in the low half, as the fragments hold them
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = pack_bf16(h);
+  lo = pack_bf16(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// A fragment of 16 rows x 16 columns (rows g and g+8; r0 = row g, r1 = row
+// g+8, each {col 2t, 2t+1, 2t+8, 2t+9}), split
+__device__ __forceinline__ void split_a(const float r0[4], const float r1[4], uint32_t ah[4],
+                                        uint32_t al[4]) {
+  split2(r0[0], r0[1], ah[0], al[0]);
+  split2(r1[0], r1[1], ah[1], al[1]);
+  split2(r0[2], r0[3], ah[2], al[2]);
+  split2(r1[2], r1[3], ah[3], al[3]);
+}
+
+// ---- mma.sync, for u (once per item)
+
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += A . B for one 16-row K step, B as mma.sync fragments in global
+// memory ({hi k0k1, hi k8k9, lo k0k1, lo k8k9} per lane and column group)
+__device__ __forceinline__ void kstep_sync(float acc[NT16][4], const float r0[4],
+                                           const float r1[4], const uint4* __restrict__ bstep,
+                                           int lane) {
+  uint32_t ah[4], al[4];
+  split_a(r0, r1, ah, al);
 #pragma unroll
-  for (int q = 0; q < C / 4; ++q) {
-    const float4 v = __ldg(row + q);
-    acc[4 * q + 0] += v.x * wt;
-    acc[4 * q + 1] += v.y * wt;
-    acc[4 * q + 2] += v.z * wt;
-    acc[4 * q + 3] += v.w * wt;
+  for (int j = 0; j < NT16; ++j) {
+    const uint4 b = __ldg(bstep + j * 32 + lane);
+    mma(acc[j], al, b.x, b.y);
+    mma(acc[j], ah, b.z, b.w);
+    mma(acc[j], ah, b.x, b.y);
   }
 }
 
-// One 64-pixel x 128-unit layer: out[h][p] = leaky(sum_k in[k][p] w[k][h] + b[h])
-// into registers; thread (ty, tx) owns pixels 4ty..4ty+3, units 8tx..8tx+7.
-__device__ __forceinline__ void dense_tile(const float* __restrict__ in_s, int nin,
-                                           const float* __restrict__ wt,
-                                           const float* __restrict__ bias,
-                                           int ty, int tx, float acc[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const float4* w4 = reinterpret_cast<const float4*>(wt) + tx * 2;
-#pragma unroll 4
-  for (int k = 0; k < nin; ++k) {
-    const float4 x = *reinterpret_cast<const float4*>(in_s + k * TP + ty * 4);
-    const float4 wa = __ldg(w4 + k * (HID / 4));
-    const float4 wb = __ldg(w4 + k * (HID / 4) + 1);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
-    const float ws[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] += xs[i] * ws[j];
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float bj = __ldg(bias + tx * 8 + j);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][j] = leaky(acc[i][j] + bj);
+// ---- wgmma
+
+__device__ __forceinline__ uint64_t tile_desc(uint32_t saddr) {
+  return uint64_t((saddr & 0x3FFFF) >> 4) | (uint64_t(LBO >> 4) << 16) |
+         (uint64_t(SBO >> 4) << 32);
+}
+
+// d (this warp's 16 rows x 8 NJ columns of the warpgroup's 64 rows) += A . B
+template <int NJ>
+__device__ __forceinline__ void wgmma(float (&d)[NJ][4], const uint32_t a[4], uint64_t desc) {
+  static_assert(NJ == 16 || NJ == 8, "m64n128k16 or m64n64k16");
+  if constexpr (NJ == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
   }
 }
 
-__global__ void __launch_bounds__(NT) fused_volume_kernel(
+// the three products of one K step; the tile at saddr is hi, saddr +
+// TILE_BYTES lo
+template <int NJ>
+__device__ __forceinline__ void wgmma3(float (&d)[NJ][4], const uint32_t ah[4],
+                                       const uint32_t al[4], uint32_t saddr) {
+  wgmma(d, al, tile_desc(saddr));
+  wgmma(d, ah, tile_desc(saddr + TILE_BYTES));
+  wgmma(d, ah, tile_desc(saddr));
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accesses of these registers across a wgmma
+// issue or wait
+template <int NJ>
+__device__ __forceinline__ void pin(float (&d)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[e])::"memory");
+}
+
+// ---- the gathers
+
+// The bilinear taps of one (pixel row, view, plane): this lane's 4 channels
+// 4t..4t+3 of each of the 4 taps, one 16-byte load a tap, and their weights
+// (0 for a tap outside the image). The packed weights order each 16-channel
+// K step so that A columns 2t, 2t+1, 2t+8, 2t+9 are channels 4t..4t+3
+// (ops/fused_volume.py FRAGMENT_CHANNELS). Apart from finish_row so that the
+// loads are in flight a view ahead.
+struct Taps {
+  float4 a[4];
+  float wt[4];
+  float z;         // projected depth + 1e-8
+};
+
+__device__ __forceinline__ Taps fetch_row(const float* __restrict__ feats,
+                                          const float* __restrict__ Pv, float ptx, float pty,
+                                          float ptz, bool live, int H, int W, int t) {
+  Taps o;
+  const float cx = Pv[0] * ptx + Pv[1] * pty + Pv[2] * ptz + Pv[3];
+  const float cy = Pv[4] * ptx + Pv[5] * pty + Pv[6] * ptz + Pv[7];
+  const float cz = Pv[8] * ptx + Pv[9] * pty + Pv[10] * ptz + Pv[11];
+  o.z = cz + 1e-8f;
+  const float scale = fabsf(cz) > 1e-8f ? __frcp_rn(o.z) : 1.f;
+  // grid_sample's chain g = 2px/W - 1, i = ((g + 1)W - 1)/2 is i = px - 1/2
+  const float ix = cx * scale - 0.5f, iy = cy * scale - 0.5f;
+  const float x0 = floorf(ix), y0 = floorf(iy);
+  const float wx1 = ix - x0, wy1 = iy - y0;
+  const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
+  // taps (x0, y0), (x0+1, y0), (x0, y0+1), (x0+1, y0+1); NaN fails every test
+  const bool vx0 = x0 >= 0.f && x0 <= float(W - 1), vx1 = x0 >= -1.f && x0 <= float(W - 2);
+  const bool vy0 = live && y0 >= 0.f && y0 <= float(H - 1);
+  const bool vy1 = live && y0 >= -1.f && y0 <= float(H - 2);
+  const bool in[4] = {vx0 && vy0, vx1 && vy0, vx0 && vy1, vx1 && vy1};
+  const float wts[4] = {wx0 * wy0, wx1 * wy0, wx0 * wy1, wx1 * wy1};
+  const int xi = int(fminf(fmaxf(x0, -1.f), float(W))), yi = int(fminf(fmaxf(y0, -1.f), float(H)));
+  const float* p00 = feats + (yi * W + xi) * C + 4 * t;
+  const int offs[4] = {0, C, W * C, W * C + C};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    o.wt[q] = in[q] ? wts[q] : 0.f;
+    o.a[q] = in[q] ? __ldg(reinterpret_cast<const float4*>(p00 + offs[q]))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  return o;
+}
+
+struct ViewOut {
+  float f[4];      // this lane's 4 warped channels
+  float lo, hi;    // this lane's two scalars of [mask, depth, dot, angle, rx, ry, rz, 0]
+};
+
+// The rest of one (pixel row, view, plane): the warped channels, the dot
+// with the current features (over the quad), and this lane's scalars.
+__device__ __forceinline__ ViewOut finish_row(const Taps& tp, const float* __restrict__ ctr,
+                                              float ptx, float pty, float ptz,
+                                              const float cr[3], const float cf[4], int t) {
+  ViewOut o;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o.f[i] = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    o.f[0] += tp.a[q].x * tp.wt[q];
+    o.f[1] += tp.a[q].y * tp.wt[q];
+    o.f[2] += tp.a[q].z * tp.wt[q];
+    o.f[3] += tp.a[q].w * tp.wt[q];
+  }
+  float dot = o.f[0] * cf[0] + o.f[1] * cf[1] + o.f[2] * cf[2] + o.f[3] * cf[3];
+  dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+  dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+  const float mask = tp.z > 0.f ? 1.f : 0.f;
+  const float sx = ptx - ctr[0], sy = pty - ctr[1], sz = ptz - ctr[2];
+  const float rn = rsqrtf(fmaxf(sx * sx + sy * sy + sz * sz, 1e-24f));   // 1 / max(|s|, 1e-12)
+  const float srx = sx * rn, sry = sy * rn, srz = sz * rn;
+  const float angle = cr[0] * srx + cr[1] * sry + cr[2] * srz;
+  o.lo = t == 0 ? mask : t == 1 ? dot * mask : t == 2 ? srx : srz;
+  o.hi = t == 0 ? tp.z : t == 1 ? angle : t == 2 ? sry : 0.f;
+  return o;
+}
+
+template <int K>
+__global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
     const float* __restrict__ cur,      // (B, N, C)
     const float* __restrict__ src,      // (B, K, N, C)
     const float* __restrict__ rays,     // (B, 3, N) unit-depth rays of the current view
@@ -98,170 +326,261 @@ __global__ void __launch_bounds__(NT) fused_volume_kernel(
     const float* __restrict__ centers,  // (B, K, 3) source camera centres, current frame
     const float* __restrict__ pose,     // (B, 3K) [pose distance, R measure, t measure]
     const float* __restrict__ planes,   // (D,)
-    const float* __restrict__ hint,     // (B, N, 3) [depth, valid, weight] or null
-    const float* __restrict__ w1t, const float* __restrict__ b1,   // (nin, HID), (HID,)
-    const float* __restrict__ w2t, const float* __restrict__ b2,   // (HID, HID), (HID,)
-    const float* __restrict__ w3, const float* __restrict__ b3,    // (HID,), (1,)
-    const float* __restrict__ hw1t, const float* __restrict__ hb1, // (3, HH), (HH,)
-    const float* __restrict__ hw2t, const float* __restrict__ hb2, // (HH, HH), (HH,)
-    const float* __restrict__ hw3, const float* __restrict__ hb3,  // (HH,), (1,)
+    const float* __restrict__ hint,     // (B, N, 3) [depth, valid, weight]; read if use_hint
+    const uint4* __restrict__ w1i,      // invariant layer-1 rows, mma.sync fragments
+    const uint4* __restrict__ w1p,      // per-plane layer-1 rows, wgmma tiles
+    const uint4* __restrict__ w2,       // layer 2, wgmma tiles
+    const float* __restrict__ vec,      // small weights (VEC_LEN)
+    const __grid_constant__ HintWeights hw,
     float* __restrict__ out,            // (B, D, N)
-    int K, int H, int W, int D) {
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);   // [nin][TP] metadata, pixel-minor
-  float* H1 = X + NIN_MAX * TP;                 // [HID][TP] first hidden layer
-  __shared__ float score_s[TP];
+    int B, int H, int W, int D, int run, int use_hint) {
+  extern __shared__ __align__(128) uint4 smem[];
+  constexpr int psteps = plane_steps(K);
+  uint4* w1p_s = smem;
+  uint4* w2_s = smem + psteps * (2 * TILE_BYTES / 16);
+  float* vec_s = reinterpret_cast<float*>(w2_s + (HID / 16) * (2 * TILE_BYTES / 16));
+  // each warp's u (its 16 pixels' shared-channel pre-activations), held
+  // as the accumulator fragments: [column group][lane][element]
+  float4* u_s = reinterpret_cast<float4*>(vec_s + VEC_LEN) + (threadIdx.x >> 5) * (NT16 * 32);
+  for (int i = threadIdx.x; i < psteps * (2 * TILE_BYTES / 16); i += NT) w1p_s[i] = w1p[i];
+  for (int i = threadIdx.x; i < (HID / 16) * (2 * TILE_BYTES / 16); i += NT) w2_s[i] = w2[i];
+  for (int i = threadIdx.x; i < VEC_LEN; i += NT) vec_s[i] = vec[i];
+  __syncthreads();
+  const uint32_t w1p_a = static_cast<uint32_t>(__cvta_generic_to_shared(w1p_s));
+  const uint32_t w2_a = static_cast<uint32_t>(__cvta_generic_to_shared(w2_s));
 
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq = (threadIdx.x >> 5) & 3;   // warp within the warpgroup
   const int N = H * W;
-  const int tile0 = blockIdx.x * TP;
-  const int d = blockIdx.y;
-  const int b = blockIdx.z;
-  const float plane = planes[d];
+  const int groups = (N + 63) / 64;
+  const int runs = (D + run - 1) / run;
+  const int items = B * groups * runs;
+  constexpr int isteps = inv_steps(K);
 
-  // channel offsets of the metadata vector (doubletake_tpu cost_volume.py:298-301)
-  const int cur_off = K * C;
-  const int mask_off = cur_off + C;
-  const int depth_off = mask_off + K;
-  const int plane_off = depth_off + K;
-  const int dot_off = plane_off + 1;
-  const int angle_off = dot_off + K;
-  const int rays_off = angle_off + K;
-  const int pose_off = rays_off + 3 * (K + 1);
-  const int nin = pose_off + 3 * K;
+  for (int item = blockIdx.x * GROUPS + (threadIdx.x >> 7); item < items;
+       item += gridDim.x * GROUPS) {
+    const int gb = item % (B * groups);
+    const int b = gb / groups;
+    const int d0 = (item / (B * groups)) * run;
+    const int d1 = min(D, d0 + run);
+    const int row0 = (gb % groups) * 64 + wq * 16 + g;
+    const int nrow[2] = {row0, row0 + 8};
+    const bool live[2] = {nrow[0] < N, nrow[1] < N};
+    // this lane's hint and output row: g for even t, g + 8 for odd t
+    const int hr = t & 1;
+    const int nh = hr ? nrow[1] : nrow[0];
+    const bool live_h = hr ? live[1] : live[0];
 
-  // ---- stage 1: metadata, thread (p, g): pixel p, views g, g+4, ... ----
-  const int t = threadIdx.x;
-  const int p = t % TP;
-  const int g = t / TP;
-  const int n = tile0 + p;
-  const bool live = n < N;
-  const float* ray_b = rays + size_t(b) * 3 * N;
-  const float rx = live ? ray_b[n] : 0.f;
-  const float ry = live ? ray_b[N + n] : 0.f;
-  const float rz = live ? ray_b[2 * N + n] : 0.f;
-  const float ptx = plane * rx, pty = plane * ry, ptz = plane * rz;
-  const float cnorm = fmaxf(sqrtf(ptx * ptx + pty * pty + ptz * ptz), 1e-12f);
-  const float crx = ptx / cnorm, cry = pty / cnorm, crz = ptz / cnorm;
-  const float* cur_n = cur + (size_t(b) * N + (live ? n : 0)) * C;
-
-  if (g == 0) {
+    // per-pixel state of rows g and g + 8
+    float ray[2][3], cr[2][3], cf[2][4];
 #pragma unroll
-    for (int c = 0; c < C; ++c) X[(cur_off + c) * TP + p] = live ? cur_n[c] : 0.f;
-    X[plane_off * TP + p] = plane;
-    X[(rays_off + 0) * TP + p] = crx;
-    X[(rays_off + 1) * TP + p] = cry;
-    X[(rays_off + 2) * TP + p] = crz;
-    for (int j = 0; j < 3 * K; ++j) X[(pose_off + j) * TP + p] = pose[size_t(b) * 3 * K + j];
-  }
-  for (int v = g; v < K; v += NT / TP) {
-    const float* P = proj + (size_t(b) * K + v) * 12;
-    const float cx = P[0] * ptx + P[1] * pty + P[2] * ptz + P[3];
-    const float cy = P[4] * ptx + P[5] * pty + P[6] * ptz + P[7];
-    const float cz = P[8] * ptx + P[9] * pty + P[10] * ptz + P[11];
-    const float z = cz + 1e-8f;
-    const float scale = fabsf(cz) > 1e-8f ? 1.f / z : 1.f;
-    const float gx = 2.f * (cx * scale) / float(W) - 1.f;
-    const float gy = 2.f * (cy * scale) / float(H) - 1.f;
-    const float ix = ((gx + 1.f) * float(W) - 1.f) / 2.f;
-    const float iy = ((gy + 1.f) * float(H) - 1.f) / 2.f;
-    const float x0 = floorf(ix), y0 = floorf(iy);
-    const float wx1 = ix - x0, wy1 = iy - y0;
-    const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
-
-    float acc[C];
+    for (int r = 0; r < 2; ++r) {
+      const int n = live[r] ? nrow[r] : 0;
+      const float* rb = rays + size_t(b) * 3 * N + n;
+      const float* cn = cur + (size_t(b) * N + n) * C + 4 * t;
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-    const float* feats = src + (size_t(b) * K + v) * size_t(N) * C;
-    if (live) {
-      add_tap(feats, x0, y0, wx0 * wy0, H, W, acc);
-      add_tap(feats, x0 + 1.f, y0, wx1 * wy0, H, W, acc);
-      add_tap(feats, x0, y0 + 1.f, wx0 * wy1, H, W, acc);
-      add_tap(feats, x0 + 1.f, y0 + 1.f, wx1 * wy1, H, W, acc);
+      for (int q = 0; q < 3; ++q) ray[r][q] = live[r] ? rb[q * N] : 0.f;
+      const float nrm = fmaxf(sqrtf(ray[r][0] * ray[r][0] + ray[r][1] * ray[r][1] +
+                                    ray[r][2] * ray[r][2]), 1e-12f);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) cr[r][q] = ray[r][q] / nrm;
+      const float4 a = live[r] ? *reinterpret_cast<const float4*>(cn)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      cf[r][0] = a.x; cf[r][1] = a.y; cf[r][2] = a.z; cf[r][3] = a.w;
     }
-    const float mask = z > 0.f ? 1.f : 0.f;
-    float dot = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      X[(v * C + c) * TP + p] = acc[c];
-      dot += acc[c] * (live ? cur_n[c] : 0.f);
+    float hdep = 0.f, hval = 0.f, hwt = 0.f;
+    if (use_hint && live_h) {
+      const float* hn = hint + (size_t(b) * N + nh) * 3;
+      hdep = hn[0]; hval = hn[1]; hwt = hn[2];
     }
-    const float* ctr = centers + (size_t(b) * K + v) * 3;
-    const float sx = ptx - ctr[0], sy = pty - ctr[1], sz = ptz - ctr[2];
-    const float snorm = fmaxf(sqrtf(sx * sx + sy * sy + sz * sz), 1e-12f);
-    const float srx = sx / snorm, sry = sy / snorm, srz = sz / snorm;
-    X[(mask_off + v) * TP + p] = mask;
-    X[(depth_off + v) * TP + p] = z;
-    X[(dot_off + v) * TP + p] = dot * mask;
-    X[(angle_off + v) * TP + p] = crx * srx + cry * sry + crz * srz;
-    X[(rays_off + 3 + 3 * v + 0) * TP + p] = srx;
-    X[(rays_off + 3 + 3 * v + 1) * TP + p] = sry;
-    X[(rays_off + 3 + 3 * v + 2) * TP + p] = srz;
-  }
-  __syncthreads();
 
-  // ---- stage 2: H1 = leaky(X^T W1 + b1) ----
-  const int tx = t % 16, ty = t / 16;
-  float acc[4][8];
-  dense_tile(X, nin, w1t, b1, ty, tx, acc);
+    // u = b1 + W1[shared channels] . x, once for the run of planes
+    float acc[NT16][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    *reinterpret_cast<float4*>(H1 + (tx * 8 + j) * TP + ty * 4) =
-        make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-  __syncthreads();
+    for (int j = 0; j < NT16; ++j) {
+      const float2 bj = *reinterpret_cast<const float2*>(vec_s + V_B1 + 8 * j + 2 * t);
+      acc[j][0] = bj.x; acc[j][1] = bj.y; acc[j][2] = bj.x; acc[j][3] = bj.y;
+    }
+    kstep_sync(acc, cf[0], cf[1], w1i, lane);
+    const float* pb = pose + size_t(b) * 3 * K;
+    for (int s = 1; s < isteps; ++s) {
+      float r0[4], r1[4];
+      const int cols[4] = {16 * (s - 1) + 2 * t, 16 * (s - 1) + 2 * t + 1,
+                           16 * (s - 1) + 2 * t + 8, 16 * (s - 1) + 2 * t + 9};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ch = cols[e];
+        const float pv = (ch >= 3 && ch < 3 + 3 * K) ? pb[ch - 3] : 0.f;
+        r0[e] = ch == 0 ? cr[0][0] : ch == 1 ? cr[0][1] : ch == 2 ? cr[0][2] : pv;
+        r1[e] = ch == 0 ? cr[1][0] : ch == 1 ? cr[1][1] : ch == 2 ? cr[1][2] : pv;
+      }
+      kstep_sync(acc, r0, r1, w1i + s * FRAG_STEP, lane);
+    }
+#pragma unroll
+    for (int j = 0; j < NT16; ++j) u_s[j * 32 + lane] = make_float4(acc[j][0], acc[j][1],
+                                                                    acc[j][2], acc[j][3]);
 
-  // ---- stage 3: H2 = leaky(H1^T W2 + b2), score = H2 . w3 + b3 ----
-  dense_tile(H1, HID, w2t, b2, ty, tx, acc);
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
+    // the taps of the next view, loaded one view ahead
+    const float* src_b = src + size_t(b) * K * N * C;
+    const float* proj_b = proj + size_t(b) * K * 12;
+    const float* ctr_b = centers + size_t(b) * K * 3;
+    Taps tp[2];   // [row]
+    auto fetch = [&](int dd, int vv) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float w3j = __ldg(w3 + tx * 8 + j);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) part[i] += acc[i][j] * w3j;
-  }
-  // the 16 tx lanes of one ty sit in one half-warp: reduce across them
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) part[i] += __shfl_xor_sync(0xffffffffu, part[i], off);
-  if (tx == 0) {
-    const float bias3 = __ldg(b3);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) score_s[ty * 4 + i] = part[i] + bias3;
-  }
-  __syncthreads();
+      for (int r = 0; r < 2; ++r)
+        tp[r] = fetch_row(src_b + size_t(vv) * N * C, proj_b + vv * 12, planes[dd] * ray[r][0],
+                          planes[dd] * ray[r][1], planes[dd] * ray[r][2], live[r], H, W, t);
+    };
+    fetch(d0, 0);
 
-  // ---- stage 4: hint MLP and store ----
-  if (t < TP) {
-    const int nn = tile0 + t;
-    if (nn < N) {
-      float s = score_s[t];
-      if (hint != nullptr) {
-        const float* hn = hint + (size_t(b) * N + nn) * 3;
-        const bool valid = hn[1] > 0.5f;
-        const float in3[3] = {s, valid ? fabsf(hn[0] - plane) : -1.f, valid ? hn[2] : 0.f};
-        float g1[HH], g2[HH];
+    uint32_t fh[4] = {0, 0, 0, 0}, fl[4] = {0, 0, 0, 0}, sh[4] = {0, 0, 0, 0},
+             sl[4] = {0, 0, 0, 0};
+    for (int d = d0; d < d1; ++d) {
+      const float plane = planes[d];
+#pragma unroll
+      for (int j = 0; j < NT16; ++j) {
+        const float2 wp = *reinterpret_cast<const float2*>(vec_s + V_WP + 8 * j + 2 * t);
+        const float4 uj = u_s[j * 32 + lane];
+        acc[j][0] = uj.x + plane * wp.x;
+        acc[j][1] = uj.y + plane * wp.y;
+        acc[j][2] = uj.z + plane * wp.x;
+        acc[j][3] = uj.w + plane * wp.y;
+      }
+      // layer 1, per-plane rows: view v's features are K step v; the
+      // scalars of views 2p and 2p+1 share step K + p. Each view's taps are
+      // finished into its A fragment while the previous view's wgmmas run.
+      float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int v = 0; v < K; ++v) {
+        ViewOut o[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          o[r] = finish_row(tp[r], ctr_b + v * 3, plane * ray[r][0], plane * ray[r][1],
+                            plane * ray[r][2], cr[r], cf[r], t);
+        if (v + 1 < K) {
+          fetch(d, v + 1);
+        } else if (d + 1 < d1) {
+          fetch(d + 1, 0);
+        }
+        if (v & 1) {   // odd view: cols 2t+8, 2t+9 of the shared step
+          s0[2] = o[0].lo; s0[3] = o[0].hi; s1[2] = o[1].lo; s1[3] = o[1].hi;
+        } else {       // even view: cols 2t, 2t+1
+          s0[0] = o[0].lo; s0[1] = o[0].hi; s1[0] = o[1].lo; s1[1] = o[1].hi;
+        }
+        // the previous view's wgmmas must be done before their A registers
+        // are written again
+        wg_wait();
+        pin(acc);
+        pin(fh); pin(fl); pin(sh); pin(sl);
+        split_a(o[0].f, o[1].f, fh, fl);
+        const bool pair = (v & 1) || v == K - 1;
+        if (pair) {
+          split_a(s0, s1, sh, sl);
+          s0[2] = s0[3] = s1[2] = s1[3] = 0.f;
+        }
+        wg_fence();
+        wgmma3(acc, fh, fl, w1p_a + v * 2 * TILE_BYTES);
+        if (pair) wgmma3(acc, sh, sl, w1p_a + (K + v / 2) * 2 * TILE_BYTES);
+        wg_commit();
+        pin(acc);
+      }
+      wg_wait();
+      pin(acc);
+      pin(fh); pin(fl); pin(sh); pin(sl);
+
+      // H1 = leaky(acc) as layer 2's A fragments (hi, lo), K step s =
+      // hidden units 16s..16s+15 = column groups 2s and 2s+1
+      uint32_t hh[HID / 16][4], hl[HID / 16][4];
+#pragma unroll
+      for (int s = 0; s < HID / 16; ++s) {
+        split2(leaky(acc[2 * s][0]), leaky(acc[2 * s][1]), hh[s][0], hl[s][0]);
+        split2(leaky(acc[2 * s][2]), leaky(acc[2 * s][3]), hh[s][1], hl[s][1]);
+        split2(leaky(acc[2 * s + 1][0]), leaky(acc[2 * s + 1][1]), hh[s][2], hl[s][2]);
+        split2(leaky(acc[2 * s + 1][2]), leaky(acc[2 * s + 1][3]), hh[s][3], hl[s][3]);
+      }
+      // layer 2 in two halves of 64 units (half the accumulators):
+      // score += leaky(b2 + H1 . W2) . w3
+      float part0 = 0.f, part1 = 0.f;
+#pragma unroll
+      for (int nh2 = 0; nh2 < 2; ++nh2) {
+        float a2[NT16 / 2][4];
+#pragma unroll
+        for (int j = 0; j < NT16 / 2; ++j) {
+          const float2 bb =
+              *reinterpret_cast<const float2*>(vec_s + V_B2 + 64 * nh2 + 8 * j + 2 * t);
+          a2[j][0] = bb.x; a2[j][1] = bb.y; a2[j][2] = bb.x; a2[j][3] = bb.y;
+        }
+        pin(a2);
+        wg_fence();
+#pragma unroll
+        for (int s = 0; s < HID / 16; ++s)
+          wgmma3(a2, hh[s], hl[s], w2_a + s * 2 * TILE_BYTES + nh2 * (NT16 / 2) * SBO);
+        wg_commit();
+        wg_wait();
+        pin(a2);
+#pragma unroll
+        for (int s = 0; s < HID / 16; ++s) { pin(hh[s]); pin(hl[s]); }
+#pragma unroll
+        for (int j = 0; j < NT16 / 2; ++j) {
+          const float2 ww =
+              *reinterpret_cast<const float2*>(vec_s + V_W3 + 64 * nh2 + 8 * j + 2 * t);
+          part0 += leaky(a2[j][0]) * ww.x + leaky(a2[j][1]) * ww.y;
+          part1 += leaky(a2[j][2]) * ww.x + leaky(a2[j][3]) * ww.y;
+        }
+      }
+      part0 += __shfl_xor_sync(0xffffffffu, part0, 1);
+      part0 += __shfl_xor_sync(0xffffffffu, part0, 2);
+      part1 += __shfl_xor_sync(0xffffffffu, part1, 1);
+      part1 += __shfl_xor_sync(0xffffffffu, part1, 2);
+      float s = (hr ? part1 : part0) + vec_s[V_B3];
+
+      if (use_hint) {
+        const bool valid = hval > 0.5f;
+        const float in3[3] = {s, valid ? fabsf(hdep - plane) : -1.f, valid ? hwt : 0.f};
+        float g1[HH];
 #pragma unroll
         for (int j = 0; j < HH; ++j) {
-          float a = __ldg(hb1 + j);
+          float a = hw.b1[j];
 #pragma unroll
-          for (int i = 0; i < 3; ++i) a += in3[i] * __ldg(hw1t + i * HH + j);
+          for (int i = 0; i < 3; ++i) a += in3[i] * hw.w1[i][j];
           g1[j] = leaky(a);
         }
+        float a3 = hw.b3;
 #pragma unroll
         for (int j = 0; j < HH; ++j) {
-          float a = __ldg(hb2 + j);
+          float a = hw.b2[j];
 #pragma unroll
-          for (int i = 0; i < HH; ++i) a += g1[i] * __ldg(hw2t + i * HH + j);
-          g2[j] = leaky(a);
+          for (int i = 0; i < HH; ++i) a += g1[i] * hw.w2[i][j];
+          a3 += leaky(a) * hw.w3[j];
         }
-        float a = __ldg(hb3);
-#pragma unroll
-        for (int i = 0; i < HH; ++i) a += g2[i] * __ldg(hw3 + i);
-        s = a;
+        s = a3;
       }
-      out[(size_t(b) * D + d) * N + nn] = s;
+      if (t < 2 && live_h) out[(size_t(b) * D + d) * N + nh] = s;
     }
   }
+}
+
+// one instantiation per view count: the view loop is unrolled, so the
+// scalar pairing and the offsets are fixed at compile time
+template <int K>
+int launch(const void* cur, const void* src, const void* rays, const void* proj,
+           const void* centers, const void* pose, const void* planes, const void* hint,
+           const void* w1i, const void* w1p, const void* w2, const void* vec,
+           const HintWeights& hw, void* out, int B, int H, int W, int D, int run, int blocks,
+           int use_hint, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_volume_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_bytes(K)));
+  if (err != cudaSuccess) return int(err);
+  fused_volume_kernel<K><<<blocks, NT, smem_bytes(K), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cur), static_cast<const float*>(src),
+      static_cast<const float*>(rays), static_cast<const float*>(proj),
+      static_cast<const float*>(centers), static_cast<const float*>(pose),
+      static_cast<const float*>(planes), static_cast<const float*>(hint),
+      static_cast<const uint4*>(w1i), static_cast<const uint4*>(w1p),
+      static_cast<const uint4*>(w2), static_cast<const float*>(vec), hw,
+      static_cast<float*>(out), B, H, W, D, run, use_hint);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -269,27 +588,29 @@ __global__ void __launch_bounds__(NT) fused_volume_kernel(
 extern "C" int fused_volume_launch(
     const void* cur, const void* src, const void* rays, const void* proj,
     const void* centers, const void* pose, const void* planes, const void* hint,
-    const void* w1t, const void* b1, const void* w2t, const void* b2,
-    const void* w3, const void* b3,
-    const void* hw1t, const void* hb1, const void* hw2t, const void* hb2,
-    const void* hw3, const void* hb3,
-    void* out, int B, int K, int H, int W, int D, void* stream) {
-  if (K < 1 || K > KMAX) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_volume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((H * W + TP - 1) / TP, D, B);
-  fused_volume_kernel<<<grid, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cur), static_cast<const float*>(src),
-      static_cast<const float*>(rays), static_cast<const float*>(proj),
-      static_cast<const float*>(centers), static_cast<const float*>(pose),
-      static_cast<const float*>(planes), static_cast<const float*>(hint),
-      static_cast<const float*>(w1t), static_cast<const float*>(b1),
-      static_cast<const float*>(w2t), static_cast<const float*>(b2),
-      static_cast<const float*>(w3), static_cast<const float*>(b3),
-      static_cast<const float*>(hw1t), static_cast<const float*>(hb1),
-      static_cast<const float*>(hw2t), static_cast<const float*>(hb2),
-      static_cast<const float*>(hw3), static_cast<const float*>(hb3),
-      static_cast<float*>(out), K, H, W, D);
-  return int(cudaGetLastError());
+    const void* w1i, const void* w1p, const void* w2, const void* vec, const float* hint_w,
+    void* out, int B, int K, int H, int W, int D, int run, int blocks, int use_hint,
+    void* stream) {
+  if (K < 1 || K > KMAX || run < 1 || blocks < 1) return int(cudaErrorInvalidValue);
+  HintWeights hw;   // host memory, copied into the launch's parameters
+  memset(&hw, 0, sizeof(hw));
+  if (use_hint) memcpy(&hw, hint_w, sizeof(hw));
+  switch (K) {
+    case 1: return launch<1>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
+                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
+    case 2: return launch<2>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
+                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
+    case 3: return launch<3>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
+                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
+    case 4: return launch<4>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
+                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
+    case 5: return launch<5>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
+                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
+    case 6: return launch<6>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
+                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
+    case 7: return launch<7>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
+                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
+    default: return launch<8>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2,
+                              vec, hw, out, B, H, W, D, run, blocks, use_hint, stream);
+  }
 }

@@ -13,6 +13,12 @@ kernel's operation order — the projection as p0*cx + p1*cy + p2*cz + p3, not
 a matmul; every divisor a tensor, so no op is turned into a multiplication
 by a reciprocal — so that kernel and plain version agree bit for bit on the
 card.
+
+Each warp of the kernel owns a box of ``BOX`` voxels and skips it when its 8
+corners prove that none of its voxels can update (beyond ``max_depth``, or
+in front of the camera and projecting outside the image).
+``block_cull_plain`` is that predicate in plain torch, for the tests: no
+voxel that ``integrate_plain`` updates may lie in a box it skips.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ import ctypes
 import torch
 
 from doubletake_tpu_torch.ops.build import load_kernel
+
+BOX = (8, 1, 32)     # voxels of one warp's box, (x, y, z) (csrc/integrate.cu)
+CULL_REL = 1e-5      # corner margin, relative to each projected sum's magnitude
+CULL_PIX = 2.0       # the image widened by this many pixels on each side
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -52,7 +62,8 @@ def integrate_plain(values_xyz, weights_xyz, depth_hw, P_34, origin_3, *,
     ix = torch.round(cam0 / zc - 0.5)   # half to even, like jnp.rint and rintf
     iy = torch.round(cam1 / zc - 0.5)
     in_img = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H) & (zc > 0)
-    flat = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).long()
+    # a voxel at zc = 0 projects to NaN: index pixel 0 for it (not sampled)
+    flat = torch.where(in_img, iy * W + ix, torch.zeros((), dtype=f32, device=dev)).long()
     sampled = torch.where(in_img, depth_hw.reshape(-1)[flat], torch.zeros((), dtype=f32, device=dev))
 
     conf = 1.0 - (sampled - min_depth) / _scalar(max_depth - min_depth, sampled)
@@ -67,6 +78,48 @@ def integrate_plain(values_xyz, weights_xyz, depth_hw, P_34, origin_3, *,
     fused = (values_xyz * weights_xyz + tsdf * new_w) / total
     return (torch.where(valid, fused, values_xyz),
             torch.where(valid, total.clamp(max=1.0), weights_xyz))
+
+
+def block_cull_plain(dims, hw, P_34, origin_3, *, voxel_size: float, max_depth: float):
+    """The boxes the kernel skips, as a (ceil(X/8), Y, ceil(Z/32)) bool
+    tensor: the kernel's corner test (``block_culled``) in float32."""
+    H, W = hw
+    dev = P_34.device
+    f32 = torch.float32
+    vs = torch.full((), voxel_size, dtype=f32, device=dev)
+    ends = []
+    for n, step in zip(dims, BOX):
+        lo = torch.arange(0, n, step, device=dev)
+        ends.append(torch.stack([lo, (lo + step).clamp(max=n) - 1], -1))   # (boxes, 2)
+    i = ends[0][:, None, None, :, None, None]
+    j = ends[1][None, :, None, None, :, None]
+    k = ends[2][None, None, :, None, None, :]
+    cx = origin_3[0] + i.to(f32) * vs
+    cy = origin_3[1] + j.to(f32) * vs
+    cz = origin_3[2] + k.to(f32) * vs
+    P = P_34.reshape(12)
+
+    def row(r):
+        p = P[4 * r:4 * r + 4]
+        val = p[0] * cx + p[1] * cy + p[2] * cz + p[3]
+        mag = (p[0] * cx).abs() + (p[1] * cy).abs() + (p[2] * cz).abs() + p[3].abs()
+        eps = CULL_REL * mag.flatten(-3).amax(-1)[..., None, None, None]
+        return val.expand(*val.shape[:3], 2, 2, 2).flatten(-3), eps.flatten(-3)
+
+    (cam0, e0), (cam1, e1), (zc, ez) = row(0), row(1), row(2)
+    znear, zfar = zc - ez, zc + ez
+    far = (znear >= max_depth).all(-1)
+    front = (znear > 0).all(-1)
+
+    def span(cam, e):
+        q = torch.stack([(cam - e) / znear, (cam - e) / zfar, (cam + e) / znear,
+                         (cam + e) / zfar], -1)
+        return q.amin(-1), q.amax(-1)
+
+    (umin, umax), (vmin, vmax) = span(cam0, e0), span(cam1, e1)
+    outside = ((umax < -CULL_PIX).all(-1) | (umin > W + CULL_PIX).all(-1)
+               | (vmax < -CULL_PIX).all(-1) | (vmin > H + CULL_PIX).all(-1))
+    return far | (front & outside)
 
 
 def _ptr(t):
@@ -101,10 +154,13 @@ def fused_integrate(values_xyz, weights_xyz, depth_hw, P_34, origin_3, *,
 
     X, Y, Z = values_xyz.shape
     H, W = depth_hw.shape
+    # 32-bit voxel indices; grid y (8 warps' rows a block) and z at most 65535
+    if values_xyz.numel() >= 2**31 or -(-Y // 8) > 65535 or -(-X // BOX[0]) > 65535:
+        raise ValueError(f"fused_integrate: volume {(X, Y, Z)} too large for the kernel")
     lib = load_kernel("integrate")
     fn = lib.integrate_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 8 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(values_xyz.device).cuda_stream
     err = fn(_ptr(values_xyz), _ptr(weights_xyz), _ptr(depth_hw), _ptr(P_34), _ptr(origin_3),

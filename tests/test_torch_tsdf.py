@@ -190,3 +190,24 @@ def test_tsdf_npz_interchange(tmp_path):
                                   tvol.weights.numpy().astype(np.float16).astype(np.float32))
     np.testing.assert_array_equal(np.asarray(back.values), tvol.values.numpy())
     assert back.dims == tvol.dims and back.voxel_size == tvol.voxel_size
+
+
+def test_integrate_camera_on_a_voxel_centre():
+    """A voxel at the camera centre projects to 0/0: it is not sampled, and
+    nothing fails on the NaN (the plain version indexes pixel 0 for it)."""
+    cfg = tt.FusionConfig(min_depth=0.05, max_depth=3.0)
+    tvol = tt.TSDF.from_bounds(BOUNDS, 0.04)
+    centre = (tvol.origin + torch.tensor([10.0, 10.0, 30.0]) * tvol.voxel_size).numpy()
+    cTw = np.eye(4, dtype=np.float32)
+    cTw[:3, 3] = -centre
+    K = np.eye(4, dtype=np.float32)         # P = [I | -centre]: exactly 0 / 0 there
+    depth = np.full((H, W, 1), 0.5, np.float32)
+    tt.integrate_depth(tvol, torch.from_numpy(depth), torch.from_numpy(cTw),
+                       torch.from_numpy(K), cfg)
+    jvol = jt.integrate_depth(jt.TSDF.from_bounds(BOUNDS, 0.04), jnp.asarray(depth),
+                              jnp.asarray(cTw), jnp.asarray(K), jt.FusionConfig(**vars(cfg)),
+                              use_pallas=False)
+    assert torch.isfinite(tvol.values).all() and float(tvol.weights[10, 10, 30]) == 0.0
+    assert float(tvol.weights.max()) > 0
+    np.testing.assert_allclose(tvol.values.numpy(), np.asarray(jvol.values), atol=1e-5)
+    np.testing.assert_allclose(tvol.weights.numpy(), np.asarray(jvol.weights), atol=1e-6)
