@@ -3,7 +3,7 @@ plain versions.
 
     python3 chip_smoke.py               # every phase; exit 0 only if all pass
     python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
-    python3 chip_smoke.py --profile     # also trace a few frames (profile.txt)
+    python3 chip_smoke.py --profile     # also trace warm steps (profile_*.txt)
 
 Phases (each one fails the run on error):
   1. the card's name and power limit, torch / CUDA versions, and the build
@@ -14,11 +14,14 @@ Phases (each one fails the run on error):
      partly valid hint and without the hint MLP (the matching MLP's own
      scores), at 61 planes (not a multiple of the planes a warp walks), at
      k=8 with a hint and k=1 without, at a small odd shape (partial pixel
-     groups, b=2), and again after a weight is changed in place: max |score
-     difference| <= 1e-3 (the kernel takes each product as three bf16
-     products of hi/lo parts, in another order than the float32 plain path);
+     groups, b=2), at the offline pass-2 shape (b=16 with a hint), and again
+     after a weight is changed in place: max |score difference| <= 1e-3
+     (the kernel takes each product as three bf16 products of hi/lo parts,
+     in another order than the float32 plain path);
   3. K2, the TSDF integrate, against its plain version on the synthetic
-     room's 304x200x152 volume for three chained frames of rendered depth
+     room's 304x200x152 score volume (0.02 m / 3.5 m) and on its 152x104x80
+     hint volume (0.04 m / 3.0 m, extended truncation: offline pass 1 and
+     revisit's first visit) for three chained frames of rendered depth
      and one with NaN pixels, on a small odd volume, with the camera inside
      the room and with nothing in view (no element may change): values and
      weights bit-equal;
@@ -33,12 +36,35 @@ Phases (each one fails the run on error):
   5. whole-step parity on the card: the first frames through the kernel path
      and through the plain path (plain volume, plain integrate) with the
      same weights: s0 depth p99 <= 1e-2 m and Abs-Diff delta <= 5e-4 m;
-  6. kernel timings (CUDA events, warm, median) beside each kernel's bound;
-     K1's bound counts its tensor-core products at the bf16 rate, and
-     ``bound_fp32_simt_ms`` keeps the reference's MACs at the fp32 rate.
+  6. kernel timings (CUDA events, warm, median) beside each kernel's bound,
+     K1 also at the pass-2 shape (b=16); K1's bound counts its tensor-core
+     products at the bf16 rate, and ``bound_fp32_simt_ms`` keeps the
+     reference's MACs at the fp32 rate;
+  7. the no-hint path: ``runners.no_hint.run`` with the SimpleRecon model
+     (``configs/models/simplerecon_model.yaml`` set in code: metadata
+     feature volume, EfficientNetV2-S, ResNet matching, U-Net++) in batches
+     of 16, fusion at 0.02 m to 3.5 m;
+  8. the offline two-pass path: ``runners.offline_two_pass.run`` with the
+     flagship configuration in batches of 16 (pass 1 into the 0.04 m /
+     3.0 m hint volume, pass 2 raycasting it in one march per batch), final
+     fusion at 0.02 m to 3.5 m with extended truncation; and the batched
+     raycast alone at b=16 (time, peak memory), of the saved hint volume
+     and of its ``prepare_static`` copy, interleaved and bit-equal;
+  9. the revisit path: ``runners.revisit.run`` with the flagship
+     configuration on the rescan ``synth0@1``, its hint volume from the
+     first visit ``synth0`` (pass 1 in batches of 16), the rescan frame by
+     frame, fused; its parity check raycasts the hint volume the run saved.
+  In phases 7-9 both kernels must launch as often as the path's batches and
+  fused frames imply (counted from the dataset's length and the batch
+  size), the metrics must be finite, hint coverage (pass 2, rescan) > 0,
+  and the first batch of each model run of the path must agree between the
+  kernel path and the plain path within phase 5's budgets (pass 2 and the
+  rescan on the same hint volume); maps/s per pass, step maps/s and the
+  path's peak device memory are recorded.
 
 The last lines are the nvidia-smi line, one JSON line ``{"kernels": [...]}``
-and ``{"ok": true, "device": {...}}``. Everything measured also goes to
+(each row with ``launches`` of the main path and ``launches_by_path``) and
+``{"ok": true, "device": {...}}``. Everything measured also goes to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -58,6 +84,8 @@ K1_TOL = 1e-3
 PARITY_P99_LIMIT = 1e-2
 ABS_DIFF_DELTA_LIMIT = 5e-4
 PARITY_FRAMES = 4
+BATCH = 16            # the throughput modes' batch size (Options' default)
+PASS2_CASE = f"pass-2 b={BATCH} k=7 D=64 hint"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -228,6 +256,9 @@ def check_fused_volume(device):
     # partial 64-pixel groups (925 pixels), two batch elements, two views
     small, module = random_volume_case(device, 2, 2, 25, 37, 8, False, 3)
     cases.append(("b=2 k=2 25x37 D=8 no hint", small))
+    # the offline pass-2 batch: 16 elements at the flagship shape, with a hint
+    pass2, _ = random_volume_case(device, BATCH, 7, 96, 128, 64, True, 6)
+    cases.append((PASS2_CASE, pass2))
     errs = {}
     for name, case in cases:
         err, plain, _ = k1_error(case)
@@ -248,7 +279,8 @@ def check_fused_volume(device):
     if not (err <= K1_TOL and moved > 1e-3):
         raise RuntimeError(f"K1 did not pick up a changed weight: err {err}, moved {moved}")
     errs["after weight change"] = err
-    return {"max_abs_err": max(errs.values()), "errors": errs, "args": args}
+    return {"max_abs_err": max(errs.values()), "errors": errs, "args": args,
+            "pass2_args": pass2}
 
 
 def look_at(pos, fwd):
@@ -265,7 +297,7 @@ def look_at(pos, fwd):
 
 def synthetic_depth_frames(n, device):
     """(depth (H, W), P (3, 4)) of n consecutive synthetic frames at depth
-    resolution (192x256), the room's TSDF bounds and the intrinsics K_s0."""
+    resolution (192x256), the dataset and the intrinsics K_s0."""
     import numpy as np
     import torch
 
@@ -279,10 +311,7 @@ def synthetic_depth_frames(n, device):
         _, cTw = ds.load_pose("synth0", 2 * i)
         P = torch.from_numpy((K0 @ cTw)[:3].astype(np.float32))
         frames.append((torch.from_numpy(depth[..., 0]).to(device), P.to(device)))
-    mn, mx = ds.get_gt_mesh_bounds("synth0")
-    bounds = {"xmin": mn[0], "xmax": mx[0], "ymin": mn[1], "ymax": mx[1],
-              "zmin": mn[2], "zmax": mx[2]}
-    return frames, bounds, K0
+    return frames, ds, K0
 
 
 def integrate_kwargs(voxel=0.02):
@@ -291,35 +320,65 @@ def integrate_kwargs(voxel=0.02):
                 trunc_check=-trunc * 1.5, update_rate=2.5, max_weight=100.0)
 
 
-def check_integrate(device):
-    import torch
+def fuser_kwargs(vol, cfg):
+    """K2's keywords for a fuser's volume and config, as
+    ``tools.tsdf.integrate_depth`` passes them."""
+    trunc = cfg.truncation_voxels * vol.voxel_size
+    return dict(voxel_size=vol.voxel_size, min_depth=cfg.min_depth, max_depth=cfg.max_depth,
+                truncation=trunc,
+                trunc_check=-trunc * (1.5 if cfg.extended_neg_truncation else 1.0),
+                update_rate=cfg.update_rate, max_weight=cfg.max_weight)
 
+
+def chained_integrate(name, vol, frames, kw):
+    """K2 and its plain version over ``frames`` chained on copies of
+    ``vol``: values and weights must stay bit-equal after every frame.
+    Returns the kernel's (values, weights) and the plain path's."""
     from doubletake_tpu_torch.ops import integrate as ig
-    from doubletake_tpu_torch.tools.tsdf import TSDF
 
-    frames, bounds, K0 = synthetic_depth_frames(3, device)
-    nan_depth = frames[-1][0].clone()
-    nan_depth[40:80, 60:120] = float("nan")
-    nan_depth[::7, ::5] = float("nan")
-    frames.append((nan_depth, frames[-1][1]))
-    vol = TSDF.from_bounds(bounds, 0.02, device=device)
     kv, kw_ = vol.values.clone(), vol.weights.clone()
     pv, pw = vol.values.clone(), vol.weights.clone()
-    kw = integrate_kwargs()
     worst = 0
     for depth, P in frames:
         ig.fused_integrate(kv, kw_, depth, P, vol.origin, **kw)
         pv, pw = ig.integrate_plain(pv, pw, depth, P, vol.origin, **kw)
         sync()
-        bad = int((kv != pv).sum()) + int((kw_ != pw).sum())
-        worst = max(worst, bad)
-    log(f"K2 integrate on {tuple(vol.dims)} over {len(frames)} frames (last with NaNs): "
-        f"{worst} differing elements, {int((kw_ > 0).sum())} observed voxels")
+        worst = max(worst, int((kv != pv).sum()) + int((kw_ != pw).sum()))
+    observed = int((kw_ > 0).sum())
+    log(f"K2 integrate, {name}, on {tuple(vol.dims)} over {len(frames)} frames (last with "
+        f"NaNs): {worst} differing elements, {observed} observed voxels")
     if worst != 0:
-        raise RuntimeError(f"K2 differs from its plain version on {worst} elements")
-    if not float(kw_.max()) > 0:
-        raise RuntimeError("K2 fused nothing")
+        raise RuntimeError(f"K2 differs from its plain version on {worst} elements ({name})")
+    if observed == 0:
+        raise RuntimeError(f"K2 fused nothing ({name})")
+    return (kv, kw_), (pv, pw)
+
+
+def check_integrate(device):
+    import torch
+
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.options import Options
+    from doubletake_tpu_torch.runners import common
+    from doubletake_tpu_torch.tools.tsdf import TSDF
+
+    frames, ds, K0 = synthetic_depth_frames(3, device)
+    bounds = common.scene_bounds_for_fusion(ds, "synth0")
+    nan_depth = frames[-1][0].clone()
+    nan_depth[40:80, 60:120] = float("nan")
+    nan_depth[::7, ::5] = float("nan")
+    frames.append((nan_depth, frames[-1][1]))
+    vol = TSDF.from_bounds(bounds, 0.02, device=device)
+    kw = integrate_kwargs()
+    (kv, kw_), (pv, pw) = chained_integrate("score volume 0.02 m / 3.5 m", vol, frames, kw)
     err = float(max((kv - pv).abs().max(), (kw_ - pw).abs().max()))
+
+    # the hint volume of offline pass 1 and of revisit's first visit:
+    # 0.04 m / 3.0 m with extended truncation (common.make_hint_fuser)
+    hint_opts = Options()
+    hint_opts.extended_neg_truncation = True
+    hvol, hcfg = common.make_hint_fuser(hint_opts, ds, "synth0", device)
+    chained_integrate("hint volume 0.04 m / 3.0 m", hvol, frames, fuser_kwargs(hvol, hcfg))
 
     # a volume at the room's centre whose voxel count (odd dims, which
     # from_bounds never makes) leaves a partial block of threads
@@ -425,15 +484,13 @@ def run_main_path(opts):
         json.load(f)
     frames = len(dataset_from_opts(opts, split=opts.split))
     fa = res["frame_avg"]
-    for key in ("abs_diff", "abs_rel", "a5", "frame_time", "hint_time", "model_time",
-                "fuse_time", "hint_coverage"):
-        if not (key in fa and fa[key] == fa[key] and abs(fa[key]) != float("inf")):
-            raise RuntimeError(f"main path: metric {key} missing or not finite")
+    require_finite("main path", fa, ("abs_diff", "abs_rel", "a5", "frame_time", "hint_time",
+                                     "model_time", "fuse_time", "hint_coverage"))
     if res["frames"] != frames:
         raise RuntimeError(f"main path: {res['frames']} of {frames} frames ran")
     summary = {
         "frames": frames, "wall_s": wall, "launches": launches,
-        # frames over the scan loop's wall time, first batch to last sync:
+        # frames over the scan loop's wall time, loop start to last sync:
         # loader waits included, what a user's scan costs
         "maps_per_s": frames / res["scan_time"],
         # 1 / mean per-frame step time (device batch to the frame's sync):
@@ -456,9 +513,6 @@ def run_main_path(opts):
 def whole_step_parity(opts, model):
     """The first frames through the kernel path and the plain path, chained,
     same weights and starting volume."""
-    import copy
-
-    import numpy as np
     import torch
 
     from doubletake_tpu_torch.data.loader import DataLoader
@@ -467,19 +521,16 @@ def whole_step_parity(opts, model):
     from doubletake_tpu_torch.runners import common, incremental
 
     device = torch.device(opts.device)
-    plain_model = copy.deepcopy(model)
-    plain_model.cost_volume.fast_cost_volume = False
+    plain_model = plain_copy(model)
     ds = dataset_from_opts(opts, split=opts.split, include_full_res_depth=True,
                            pass_frame_id=True)
     loader = DataLoader(ds, batch_size=1, shuffle=False, num_workers=2)
     vol_k, cfg = common.make_fuser(opts, ds, "synth0", device)
     vol_p, _ = common.make_fuser(opts, ds, "synth0", device)
     samples = common.resolve_raycast_samples(opts, vol_k.voxel_size, opts.fusion_max_depth)
-    step = incremental.make_step(model, cfg, 96, 128, samples, opts.fusion_max_depth, opts)
-    trunc = cfg.truncation_voxels * vol_p.voxel_size
-    kw = dict(voxel_size=vol_p.voxel_size, min_depth=cfg.min_depth, max_depth=cfg.max_depth,
-              truncation=trunc, trunc_check=-trunc * 1.5, update_rate=cfg.update_rate,
-              max_weight=cfg.max_weight)
+    step = incremental.make_step(model, cfg, *hint_hw(opts), samples, opts.fusion_max_depth,
+                                 opts)
+    kw = fuser_kwargs(vol_p, cfg)
     rows = []
     for i, (cur_np, src_np) in enumerate(loader):
         if i == PARITY_FRAMES:
@@ -487,30 +538,63 @@ def whole_step_parity(opts, model):
         cur, src = common.device_batch(cur_np, src_np, device)
         out_k, _, vol_k = step(vol_k, cur, src)
         with torch.no_grad():
-            hint = incremental.render_hint(vol_p, cur, 96, 128, samples, opts.fusion_max_depth)
+            hint = common.render_hint(vol_p, cur, *hint_hw(opts), samples, opts.fusion_max_depth)
             out_p = plain_model(cur, src, hint=hint, return_mask=True)
             P = torch.matmul(cur["K_s0_b44"][0], cur["cam_T_world_b44"][0])[:3].contiguous()
             vol_p.values, vol_p.weights = integrate_plain(
                 vol_p.values, vol_p.weights, out_p["depth_pred_s0_bhw1"][0, ..., 0].contiguous(),
                 P, vol_p.origin, **kw)
         gt = torch.as_tensor(cur_np["full_res_depth_bhw1"]).to(device)
-        dk, dp = out_k["depth_pred_s0_bhw1"], out_p["depth_pred_s0_bhw1"]
-        p99 = float(np.percentile((dk - dp).abs().cpu().numpy(), 99))
-        delta = abs(float(common.frame_metrics(dk, gt)["abs_diff"][0])
-                    - float(common.frame_metrics(dp, gt)["abs_diff"][0]))
-        rows.append({"frame": i, "s0_p99_m": p99, "abs_diff_delta_m": delta})
-        log(f"parity frame {i}: s0 p99 {p99:.2e} m, Abs-Diff delta {delta:.2e} m")
-        if not (p99 <= PARITY_P99_LIMIT and delta <= ABS_DIFF_DELTA_LIMIT):
-            raise RuntimeError(f"whole-step parity failed at frame {i}: {rows[-1]}")
+        rows.append(batch_parity(f"incremental frame {i}", out_k, out_p, gt))
     return rows
 
 
-def profile_main_step(opts, model, warm=2, frames=3):
-    """torch.profiler over a few warm frames of the main step: device busy
-    share of the wall time and device time by kernel, into
-    chiprun_out/profile.txt."""
+def profile_calls(name, calls, frames_per_call=1):
+    """torch.profiler over warm ``calls`` (thunks): the device busy share of
+    the wall time and device time by kernel, per frame, with the table in
+    chiprun_out/profile_{name}.txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # the kernels and copies themselves (CPU ops also carry their kernels'
+    # device time, which would count it twice)
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    device_us = sum(dev_us(e) for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    frames = len(calls) * frames_per_call
+    summary = {
+        "frames": frames, "wall_ms_per_frame": wall_us / frames / 1e3,
+        "device_ms_per_frame": device_us / frames / 1e3,
+        "device_busy_share": device_us / wall_us,
+        "top": [{"name": e.key[:80], "device_ms_per_frame": dev_us(e) / frames / 1e3,
+                 "calls_per_frame": e.count / frames} for e in top],
+    }
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
+    log(f"profile {name}: {summary['wall_ms_per_frame']:.1f} ms/frame wall, "
+        f"{summary['device_ms_per_frame']:.1f} ms/frame on the device "
+        f"(busy {summary['device_busy_share']:.2f})")
+    for row in summary["top"]:
+        log(f"  {row['device_ms_per_frame']:8.3f} ms  x{row['calls_per_frame']:.2f}  {row['name']}")
+    return summary
+
+
+def profile_main_step(opts, model, warm=2, frames=3):
+    """``profile_calls`` over a few warm frames of the main step."""
+    import torch
 
     from doubletake_tpu_torch.data.loader import DataLoader
     from doubletake_tpu_torch.datasets.registry import dataset_from_opts
@@ -525,57 +609,305 @@ def profile_main_step(opts, model, warm=2, frames=3):
         batches.append(common.device_batch(*b, device))
     vol, cfg = common.make_fuser(opts, ds, "synth0", device)
     samples = common.resolve_raycast_samples(opts, vol.voxel_size, opts.fusion_max_depth)
-    step = incremental.make_step(model, cfg, 96, 128, samples, opts.fusion_max_depth, opts)
+    step = incremental.make_step(model, cfg, *hint_hw(opts), samples, opts.fusion_max_depth,
+                                 opts)
     for cur, src in batches[:warm]:
         step(vol, cur, src)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for cur, src in batches[warm:]:
-            step(vol, cur, src)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
+    return profile_calls("incremental", [lambda b=b: step(vol, *b) for b in batches[warm:]])
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # the kernels and copies themselves (CPU ops also carry their kernels'
-    # device time, which would count it twice)
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    device_us = sum(dev_us(e) for e in kernels)
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    summary = {
-        "frames": frames, "wall_ms_per_frame": wall_us / frames / 1e3,
-        "device_ms_per_frame": device_us / frames / 1e3,
-        "device_busy_share": device_us / wall_us,
-        "top": [{"name": e.key[:80], "device_ms_per_frame": dev_us(e) / frames / 1e3,
-                 "calls_per_frame": e.count / frames} for e in top],
-    }
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
-        f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
-    log(f"profile: {summary['wall_ms_per_frame']:.1f} ms/frame wall, "
-        f"{summary['device_ms_per_frame']:.1f} ms/frame on the device "
-        f"(busy {summary['device_busy_share']:.2f})")
-    for row in summary["top"]:
-        log(f"  {row['device_ms_per_frame']:8.3f} ms  x{row['calls_per_frame']:.0f}  {row['name']}")
+# ------------------------------------------------------- the other paths
+
+
+def throughput_options(out_dir, name):
+    """The flagship configuration in batches of 16 (offline, revisit)."""
+    o = flagship_options(out_dir)
+    o.name = name
+    o.batch_size = BATCH
+    return o
+
+
+def no_hint_options(out_dir):
+    o = throughput_options(out_dir, "chip_smoke_no_hint")
+    # configs/models/simplerecon_model.yaml, set in code
+    o.model_type = "depth_model"
+    o.feature_volume_type = "mlp_feature_volume"
+    o.fill_depth_hints = False
+    o.extended_neg_truncation = False
+    return o
+
+
+def hint_hw(opts):
+    """The hint's size: the matching resolution, image / 4."""
+    return opts.image_height // 4, opts.image_width // 4
+
+
+def require_finite(path, metrics, keys):
+    for key in keys:
+        v = metrics.get(key)
+        if not (v is not None and v == v and abs(v) != float("inf")):
+            raise RuntimeError(f"{path}: metric {key} missing or not finite")
+
+
+def drive(path, run, opts, model, expected):
+    """One run of a path with both kernels' counts set to 0 just before it
+    and read just after; fails unless each kernel launched ``expected``
+    times. Returns the run's result and its launches, wall time and peak
+    device memory."""
+    import torch
+
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops import integrate as ig
+
+    torch.cuda.reset_peak_memory_stats()
+    fv.fused_feature_volume.launches = 0
+    ig.fused_integrate.launches = 0
+    t0 = time.perf_counter()
+    res = run(opts, model=model)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"fused_volume": fv.fused_feature_volume.launches,
+                "integrate": ig.fused_integrate.launches}
+    summary = {"wall_s": wall, "launches": launches, "expected_launches": expected,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if launches != expected:
+        raise RuntimeError(f"{path}: launches {launches}, expected {expected}")
+    return res, summary
+
+
+def plain_copy(model):
+    """The model with the same weights on the plain feature-volume path."""
+    import copy
+
+    plain = copy.deepcopy(model)
+    plain.cost_volume.fast_cost_volume = False
+    return plain
+
+
+def first_batch(opts, scan_id, batch_size):
+    """The first batch of a scan, as numpy (cur, src)."""
+    from doubletake_tpu_torch.data.loader import DataLoader
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+
+    ds = dataset_from_opts(opts, split=opts.split, limit_to_scan_id=scan_id,
+                           include_full_res_depth=True)
+    for batch in DataLoader(ds, batch_size=batch_size, shuffle=False, num_workers=4):
+        return batch
+
+
+def batch_parity(name, out_k, out_p, gt):
+    """Per frame of a batch: s0 depth p99 |kernel - plain| and the Abs-Diff
+    metric's difference, within phase 5's budgets."""
+    import numpy as np
+
+    from doubletake_tpu_torch.runners import common
+
+    dk, dp = out_k["depth_pred_s0_bhw1"], out_p["depth_pred_s0_bhw1"]
+    p99 = np.percentile((dk - dp).abs().flatten(1).cpu().numpy(), 99, axis=1)
+    delta = (common.frame_metrics(dk, gt)["abs_diff"]
+             - common.frame_metrics(dp, gt)["abs_diff"]).abs().cpu().numpy()
+    row = {"frames": int(dk.shape[0]), "s0_p99_m_max": float(p99.max()),
+           "abs_diff_delta_m_max": float(delta.max())}
+    log(f"parity {name}: {row['frames']} frames, s0 p99 <= {row['s0_p99_m_max']:.2e} m, "
+        f"Abs-Diff delta <= {row['abs_diff_delta_m_max']:.2e} m")
+    if not (row["s0_p99_m_max"] <= PARITY_P99_LIMIT
+            and row["abs_diff_delta_m_max"] <= ABS_DIFF_DELTA_LIMIT):
+        raise RuntimeError(f"parity failed on {name}: {row}")
+    return row
+
+
+def run_no_hint_path(out_dir, batch_np):
+    import torch
+
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.runners import common, no_hint
+
+    opts = no_hint_options(out_dir)
+    device = torch.device(opts.device)
+    model = common.init_or_load_params(opts, common.build_model(opts))
+    frames = len(dataset_from_opts(opts, split=opts.split))
+    expected = {"fused_volume": -(-frames // BATCH), "integrate": frames}
+    # the parity check first: the timed run then starts warm at b=16
+    cur, src = common.device_batch(*batch_np, device)
+    gt = torch.as_tensor(batch_np[0]["full_res_depth_bhw1"]).to(device)
+    with torch.no_grad():
+        parity = batch_parity("no-hint batch 0", model(cur, src, return_mask=True),
+                              plain_copy(model)(cur, src, return_mask=True), gt)
+    del cur, src, gt
+    res, summary = drive("no-hint", no_hint.run, opts, model, expected)
+    fa = res["frame_avg"]
+    require_finite("no-hint", fa, ("abs_diff", "abs_rel", "a5", "frame_time", "model_time"))
+    if res["frames"] != frames:
+        raise RuntimeError(f"no-hint: {res['frames']} of {frames} frames ran")
+    summary.update({
+        "frames": frames, "maps_per_s": frames / res["scan_time"],
+        "step_maps_per_s": 1.0 / fa["frame_time"], "model_ms_per_frame": fa["model_time"] * 1e3,
+        "abs_diff": fa["abs_diff"], "parity": parity,
+    })
+    log(f"no-hint: {frames} frames, {summary['maps_per_s']:.2f} maps/s over the scan loop, "
+        f"{summary['step_maps_per_s']:.2f} by mean step (model {summary['model_ms_per_frame']:.1f} "
+        f"ms a frame), peak {summary['peak_mem_gib']:.2f} GiB, launches {summary['launches']}")
+    return summary
+
+
+def run_offline_path(out_dir, model, batch_np, profile=False):
+    import torch
+
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.runners import common, offline_two_pass
+    from doubletake_tpu_torch.tools.tsdf import TSDF, prepare_static, raycast
+
+    opts = throughput_options(out_dir, "chip_smoke_offline")
+    device = torch.device(opts.device)
+    frames = len(dataset_from_opts(opts, split=opts.split))
+    batches = -(-frames // BATCH)
+    # pass 1 and pass 2 each run every batch; each fuses every frame
+    expected = {"fused_volume": 2 * batches, "integrate": 2 * frames}
+    cur, src = common.device_batch(*batch_np, device)
+    gt = torch.as_tensor(batch_np[0]["full_res_depth_bhw1"]).to(device)
+    plain = plain_copy(model)
+    hint = common.empty_hint(cur["image_bhw3"].shape[0], opts.image_height, opts.image_width,
+                             device)
+    # pass 1's parity check first: the timed run then starts warm at b=16
+    with torch.no_grad():
+        parity_pass1 = batch_parity(
+            "offline pass 1 batch 0", model(cur, src, hint=hint, return_mask=True),
+            plain(cur, src, hint=hint, return_mask=True), gt)
+    res, summary = drive("offline", offline_two_pass.run, opts, model, expected)
+    fa = res["frame_avg"]
+    require_finite("offline", fa, ("abs_diff", "abs_rel", "a5", "frame_time", "hint_coverage"))
+    if res["frames"] != frames or not fa["hint_coverage"] > 0:
+        raise RuntimeError(f"offline: {res['frames']} of {frames} frames, "
+                           f"hint coverage {fa['hint_coverage']}")
+    pt = res["pass_time"]
+    summary.update({
+        "frames": frames, "pass1_maps_per_s": frames / pt["pass1"],
+        "pass2_maps_per_s": frames / pt["pass2"], "step_maps_per_s": 1.0 / fa["frame_time"],
+        "hint_coverage": fa["hint_coverage"], "abs_diff": fa["abs_diff"],
+        "parity_pass1": parity_pass1,
+    })
+
+    hint_path = os.path.join(out_dir, opts.name, "offline_two_pass_default", "meshes",
+                             "synth0_hint_tsdf.npz")
+    loaded = TSDF.load(hint_path, device=device)
+    static = prepare_static(loaded)
+    samples = common.resolve_raycast_samples(opts, static.voxel_size, offline_two_pass.HINT_MAX_DEPTH)
+    steps = [offline_two_pass.make_pass2_step(m, *hint_hw(opts), samples,
+                                              offline_two_pass.HINT_MAX_DEPTH)
+             for m in (model, plain)]
+    summary["parity_pass2"] = batch_parity("offline pass 2 batch 0", steps[0](static, cur, src)[0],
+                                           steps[1](static, cur, src)[0], gt)
+    if profile:
+        summary["profile_pass2"] = profile_calls(
+            "offline_pass2", [lambda: steps[0](static, cur, src)] * 3, BATCH)
+    del plain, steps
+
+    # the batched raycast alone: one march over the batch's 16 poses, of the
+    # volume as loaded (bf16 rounding at each corner read) and of its
+    # rounded static copy, interleaved; the two must be bit-equal
+    kw = dict(min_depth=common.EVAL_MIN_DEPTH, max_depth=offline_two_pass.HINT_MAX_DEPTH,
+              num_samples=samples)
+
+    def cast(vol):
+        return raycast(vol, cur["world_T_cam_b44"], cur["invK_s0_b44"], *hint_hw(opts), **kw)
+
+    def timed(vol):
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms = median_ms(lambda: cast(vol), reps=5, warmup=1)
+        return ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    with torch.no_grad():
+        a, b = cast(loaded), cast(static)
+    if not all(torch.equal(torch.nan_to_num(x, nan=-7.0), torch.nan_to_num(y, nan=-7.0))
+               for x, y in zip(a, b)):
+        raise RuntimeError("raycast of the static copy differs from the loaded volume's")
+    ab = {"tsdf": [], "static": []}
+    for which in ("tsdf", "static", "static", "tsdf", "tsdf", "static"):
+        ab[which].append(timed(loaded if which == "tsdf" else static))
+    ms = sorted(t for t, _ in ab["static"])[1]
+    summary["raycast_b16"] = {
+        "ms": ms, "samples": samples, "volume": list(static.dims),
+        "peak_temporaries_gib": max(m for _, m in ab["static"]),
+        "tsdf_ms": [t for t, _ in ab["tsdf"]], "static_ms": [t for t, _ in ab["static"]],
+        "tsdf_peak_gib": max(m for _, m in ab["tsdf"])}
+    log(f"raycast b={BATCH}: loaded TSDF {summary['raycast_b16']['tsdf_ms']} ms "
+        f"(peak {summary['raycast_b16']['tsdf_peak_gib']:.2f} GiB), static copy "
+        f"{summary['raycast_b16']['static_ms']} ms (peak "
+        f"{summary['raycast_b16']['peak_temporaries_gib']:.2f} GiB)")
+    log(f"offline: {frames} frames, pass 1 {summary['pass1_maps_per_s']:.2f} / pass 2 "
+        f"{summary['pass2_maps_per_s']:.2f} maps/s over the loops, {summary['step_maps_per_s']:.2f} "
+        f"by mean pass-2 step, hint coverage {fa['hint_coverage']:.3f}, peak "
+        f"{summary['peak_mem_gib']:.2f} GiB, launches {summary['launches']}; raycast b={BATCH} "
+        f"({samples} samples, volume {static.dims}): {ms:.2f} ms, temporaries "
+        f"{summary['raycast_b16']['peak_temporaries_gib']:.2f} GiB")
+    return summary
+
+
+def run_revisit_path(out_dir, model):
+    import torch
+
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.runners import common, offline_two_pass, revisit
+    from doubletake_tpu_torch.tools.tsdf import TSDF, prepare_static
+
+    opts = throughput_options(out_dir, "chip_smoke_revisit")
+    opts.single_debug_scan_id = "synth0@1"
+    device = torch.device(opts.device)
+    rescan_ds = dataset_from_opts(opts, split=opts.split)
+    first_scan, first_T_second = rescan_ds.revisit_source_scan(opts.single_debug_scan_id)
+    first = len(dataset_from_opts(opts, split=opts.split, limit_to_scan_id=first_scan))
+    rescan = len(rescan_ds)
+    # the first visit's pass 1 in batches, the rescan frame by frame; both fused
+    expected = {"fused_volume": -(-first // BATCH) + rescan, "integrate": first + rescan}
+    res, summary = drive("revisit", revisit.run, opts, model, expected)
+    fa = res["frame_avg"]
+    require_finite("revisit", fa, ("abs_diff", "abs_rel", "a5", "frame_time", "hint_coverage"))
+    if res["frames"] != rescan or not fa["hint_coverage"] > 0:
+        raise RuntimeError(f"revisit: {res['frames']} of {rescan} frames, "
+                           f"hint coverage {fa['hint_coverage']}")
+    pt = res["pass_time"]
+    summary.update({
+        "first_visit_frames": first, "rescan_frames": rescan,
+        "first_visit_maps_per_s": first / pt["first_visit"],
+        "rescan_maps_per_s": rescan / pt["rescan"], "step_maps_per_s": 1.0 / fa["frame_time"],
+        "hint_coverage": fa["hint_coverage"], "abs_diff": fa["abs_diff"],
+    })
+
+    # the parity check on the hint volume this run built from the first visit
+    static = prepare_static(TSDF.load(os.path.join(
+        out_dir, opts.name, "revisit_default", "meshes", f"{first_scan}_hint_tsdf.npz"),
+        device=device))
+    batch_np = first_batch(opts, opts.single_debug_scan_id, 1)
+    cur, src = common.device_batch(*batch_np, device)
+    cur["hint_world_T_cam_b44"] = torch.matmul(
+        torch.as_tensor(first_T_second, dtype=torch.float32, device=device), cur["world_T_cam_b44"])
+    gt = torch.as_tensor(batch_np[0]["full_res_depth_bhw1"]).to(device)
+    samples = common.resolve_raycast_samples(opts, static.voxel_size, offline_two_pass.HINT_MAX_DEPTH)
+    steps = [offline_two_pass.make_pass2_step(m, *hint_hw(opts), samples,
+                                              offline_two_pass.HINT_MAX_DEPTH)
+             for m in (model, plain_copy(model))]
+    summary["parity"] = batch_parity("revisit rescan frame 0", steps[0](static, cur, src)[0],
+                                     steps[1](static, cur, src)[0], gt)
+    log(f"revisit: first visit {first} frames at {summary['first_visit_maps_per_s']:.2f} maps/s, "
+        f"rescan {rescan} frames at {summary['rescan_maps_per_s']:.2f} maps/s over the loop, "
+        f"{summary['step_maps_per_s']:.2f} by mean step, hint coverage {fa['hint_coverage']:.3f}, "
+        f"peak {summary['peak_mem_gib']:.2f} GiB, launches {summary['launches']}")
     return summary
 
 
 # -------------------------------------------------------------- kernel line
 
 
-def time_kernels(k1, k2, launches):
+def time_k1(args):
+    """K1's time (batches of 10 launches), its plain version's and its bound
+    at the shape of ``args``."""
     import torch
 
     from doubletake_tpu_torch.ops import fused_volume as fv
-    from doubletake_tpu_torch.ops import integrate as ig
-    from doubletake_tpu_torch.tools.tsdf import TSDF
 
-    rows = []
-    # K1: one call computes the (1, 64, 96, 128) hint volume
-    args = k1["args"]
     hint = torch.nan_to_num(args[-1], nan=0.0)
     cur, src = args[0], args[1]
     b, h, w, c = cur.shape
@@ -597,17 +929,30 @@ def time_kernels(k1, k2, launches):
         plain_ms = median_ms(lambda: fv.feature_volume_plain(*args[:-1], hint), reps=5, warmup=1)
     t_ops = max(3 * 2 * macs_tc / BF16_TC_PEAK, 2 * macs_simt / FP32_PEAK) * 1e3
     t_bytes = bytes_k1 / HBM_RATE * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            # the PR 1 bound: the reference's MACs at the fp32 rate outside
+            # the tensor cores
+            "bound_fp32_simt_ms": 2 * macs / FP32_PEAK * 1e3}
+
+
+def time_kernels(k1, k2, launches):
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.tools.tsdf import TSDF
+
+    rows = []
+    # K1: one call computes the (1, 64, 96, 128) hint volume; and the
+    # (16, 64, 96, 128) volume of an offline pass-2 batch
+    pass2 = {"b": BATCH, "max_abs_err": k1["errors"][PASS2_CASE], **time_k1(k1["pass2_args"])}
     rows.append({
         "name": "fused_feature_volume", "route": "cuda",
         "source": "doubletake_tpu_torch/csrc/fused_volume.cu",
         "replaces": "doubletake_tpu/ops/pallas/fused_volume.py:511",
         "launches": launches["fused_volume"], "max_abs_err": k1["max_abs_err"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
-        # the PR 1 bound: the reference's MACs at the fp32 rate outside the
-        # tensor cores
-        "bound_fp32_simt_ms": 2 * macs / FP32_PEAK * 1e3,
+        "library_ms": None, **time_k1(k1["args"]), "pass2_shape": pass2,
     })
+    log(f"fused_feature_volume at b={BATCH}: {pass2['ms']:.3f} ms (plain {pass2['plain_ms']:.3f} "
+        f"ms, bound {pass2['bound_ms']:.4f} ms by {pass2['bound_by']})")
 
     # K2: one fusion step on the 304x200x152 volume with the third frame's
     # depth. Which voxels update depends on the depth and the pose only, not
@@ -702,10 +1047,22 @@ def main(argv):
             results["parity"] = whole_step_parity(opts, model)
             if "--profile" in argv:
                 results["profile"] = profile_main_step(opts, model)
-        kernels = time_kernels(k1, k2, main_summary["launches"])
+            kernels = time_kernels(k1, k2, main_summary["launches"])
+
+            batch_np = first_batch(opts, "synth0", BATCH)
+            paths = {"no_hint": run_no_hint_path(tmp, batch_np)}
+            paths["offline_two_pass"] = run_offline_path(tmp, model, batch_np,
+                                                         "--profile" in argv)
+            paths["revisit"] = run_revisit_path(tmp, model)
+            results["paths"] = paths
+        by_path = {"incremental": main_summary["launches"],
+                   **{p: v["launches"] for p, v in paths.items()}}
     else:
-        # the main path did not run: its launch counts were not measured
+        # the paths did not run: their launch counts were not measured
         kernels = time_kernels(k1, k2, {"fused_volume": None, "integrate": None})
+        by_path = None
+    for row, key in zip(kernels, ("fused_volume", "integrate")):
+        row["launches_by_path"] = by_path and {p: n[key] for p, n in by_path.items()}
     results["kernels"] = kernels
 
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -225,6 +225,18 @@ def load_npz_variables(path: str) -> Dict:
     return out
 
 
+def lazy_load_state_dict(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]):
+    """Copy the entries of ``state_dict`` whose names and shapes match the
+    model's over the model's own, in place, and keep the rest (the JAX
+    package's ``checkpoints/io.py`` ``lazy_load_params``). Returns the names
+    that were kept."""
+    own = model.state_dict()
+    matching = {k: v for k, v in state_dict.items()
+                if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    model.load_state_dict(matching, strict=False)
+    return sorted(set(own) - set(matching))
+
+
 def load_weights(path: str) -> Dict[str, torch.Tensor]:
     """A state_dict from a reference ``.ckpt``/``.pth`` (loaded as it is) or
     a JAX-package npz (through ``variables_to_state_dict``)."""

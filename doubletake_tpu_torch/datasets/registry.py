@@ -1,8 +1,4 @@
-"""Dataset registry (reference utils/dataset_utils.py:10-148 parity).
-
-The port reads the synthetic scenes and ScanNet so far; the other readers
-of the JAX package come with later slices.
-"""
+"""Dataset registry (reference utils/dataset_utils.py:10-148 parity)."""
 
 from __future__ import annotations
 
@@ -16,6 +12,32 @@ def get_dataset(dataset_name: str):
         return ScannetDataset
     if dataset_name == "synthetic":
         return SyntheticDataset
+    if dataset_name == "7scenes":
+        from doubletake_tpu_torch.datasets.seven_scenes import SevenScenesDataset
+
+        return SevenScenesDataset
+    if dataset_name == "3rscan":
+        from doubletake_tpu_torch.datasets.threer_scan import ThreeRScanDataset
+
+        return ThreeRScanDataset
+    if dataset_name == "vdr":
+        from doubletake_tpu_torch.datasets.vdr import VDRDataset
+
+        return VDRDataset
+    if dataset_name == "colmap":
+        from doubletake_tpu_torch.datasets.colmap import ColmapDataset
+
+        return ColmapDataset
+    if dataset_name in ("arkit", "scanniverse"):
+        # the reference routes these names to ARKitDataset /
+        # ScanniverseDataset (utils/dataset_utils.py:49-97) but never
+        # shipped those classes
+        raise NotImplementedError(
+            f"'{dataset_name}' is a recognized dataset name, but its reader "
+            "was not released in the reference (dataset_utils.py:49-97 "
+            "references an undefined class); use 'vdr' for ARKit-style "
+            "iPhone captures or 'colmap' for generic posed captures."
+        )
     raise ValueError(f"Unknown dataset: {dataset_name}")
 
 
@@ -48,3 +70,12 @@ def dataset_from_opts(opts, split=None, limit_to_scan_id=None, **overrides):
         if limit is not None:
             kwargs["scan_ids"] = [limit]
     return cls(**kwargs)
+
+
+def get_scan_list(opts, split_file=None):
+    """Reads the scan list file for scripts; synthetic yields synth scans."""
+    if opts.dataset == "synthetic":
+        return ["synth0"]
+    from doubletake_tpu_torch.utils.io import readlines
+
+    return readlines(split_file or opts.dataset_scan_split_file)

@@ -1,6 +1,7 @@
 """Shared runner infrastructure: device selection, model construction and
-weights, the metric protocol (nearest upsample to full-res GT, valid > 0.5 m)
-and the fuser.
+weights, options the port does not run yet, stage timing, the metric
+protocol (nearest upsample to full-res GT, valid > 0.5 m), the fusers and
+the hint render.
 
 Protocol parity with the reference eval scripts (test_no_hint.py:177-212,
 test_incremental.py:290-326): predictions are nearest-upsampled to the
@@ -11,19 +12,21 @@ frame, per scene, and overall via ResultsAverager.
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, Tuple
 
 import torch
 
-from doubletake_tpu_torch.checkpoints.convert import load_weights
+from doubletake_tpu_torch.checkpoints.convert import lazy_load_state_dict, load_weights
 from doubletake_tpu_torch.models.depth_model import get_model_class
 from doubletake_tpu_torch.models.layers import init_parameters
 from doubletake_tpu_torch.ops.resize import interpolate_nearest
 from doubletake_tpu_torch.options import Options
-from doubletake_tpu_torch.tools.tsdf import TSDF, FusionConfig, auto_raycast_samples
+from doubletake_tpu_torch.tools.tsdf import TSDF, FusionConfig, auto_raycast_samples, raycast
 from doubletake_tpu_torch.utils.metrics import compute_depth_metrics_batched
 
 EVAL_MIN_DEPTH = 0.5  # valid GT depth threshold (test_no_hint.py:184)
+HINT_WEIGHT_THRESHOLD = 0.025  # test_incremental.py:244
 
 # keys the step consumes
 CUR_KEYS = ("image_bhw3", "cam_T_world_b44", "world_T_cam_b44", "invK_s1_b44",
@@ -77,7 +80,11 @@ def build_model(opts: Options) -> torch.nn.Module:
 def init_or_load_params(opts: Options, model: torch.nn.Module) -> torch.nn.Module:
     """Load weights from opts.load_weights_from_checkpoint (a reference
     ``.ckpt`` or a JAX-package npz, through the weights bridge), or
-    initialise from a generator seeded with opts.random_seed."""
+    initialise from a generator seeded with opts.random_seed. With
+    opts.lazy_load_weights_from_checkpoint, the checkpoint's entries whose
+    names and shapes match are then copied over the initialisation and the
+    rest keep it (the JAX package's ``lazy_load_params``; reference
+    model_utils.py:47-63)."""
     path = opts.load_weights_from_checkpoint
     if path and os.path.exists(path):
         model.load_state_dict(load_weights(path))
@@ -86,7 +93,68 @@ def init_or_load_params(opts: Options, model: torch.nn.Module) -> torch.nn.Modul
     generator = torch.Generator().manual_seed(opts.random_seed)
     model.cpu()
     init_parameters(model, generator)
-    return model.to(device)
+    model.to(device)
+    lazy_path = opts.lazy_load_weights_from_checkpoint
+    if lazy_path and os.path.exists(lazy_path):
+        lazy_load_state_dict(model, load_weights(lazy_path))
+    return model
+
+
+def reject_unported(opts: Options):
+    """Raise for options whose code the port does not have yet, instead of
+    ignoring them."""
+    if opts.dump_depth_visualization:
+        raise ValueError("dump_depth_visualization is not ported yet")
+    if opts.raycast_mip:
+        raise ValueError("raycast_mip is not ported yet")
+
+
+class StageClock:
+    """Stage boundaries of one step: CUDA events on a GPU (read after the
+    step's synchronisation, so timing adds no sync), host clock on the CPU."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks = []
+
+    def mark(self, name: str):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append((name, ev))
+        else:
+            self.marks.append((name, time.perf_counter()))
+
+    def elapsed_ms(self):
+        """{stage: ms} between consecutive marks; call after a synchronize."""
+        out = {}
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+        return out
+
+
+def empty_hint(b: int, h: int, w: int, device):
+    """An all-invalid hint, as the JAX runners feed before a volume exists."""
+    zero = torch.zeros((b, h, w, 1), dtype=torch.float32, device=device)
+    return {"depth_hint_bhw1": zero, "hint_mask_bhw1": zero.bool(),
+            "sampled_weights_bhw1": zero}
+
+
+def render_hint(vol, cur, hint_h, hint_w, raycast_samples, max_depth):
+    """Hint dict for the model, raycast from ``vol`` (a running ``TSDF`` or
+    a ``StaticVolume``) at every pose of the batch: cur["world_T_cam_b44"],
+    or cur["hint_world_T_cam_b44"] where a runner maps the poses into the
+    volume's world frame. Pixels below weight 0.025 are invalid."""
+    pose = cur.get("hint_world_T_cam_b44", cur["world_T_cam_b44"])
+    hint_d, hint_wt, hint_v = raycast(
+        vol, pose, cur["invK_s0_b44"], hint_h, hint_w, min_depth=EVAL_MIN_DEPTH,
+        max_depth=max_depth, num_samples=raycast_samples)
+    valid = hint_v & (hint_wt >= HINT_WEIGHT_THRESHOLD)
+    return {
+        "depth_hint_bhw1": torch.where(valid, hint_d, torch.full_like(hint_d, float("nan")))[..., None],
+        "hint_mask_bhw1": valid[..., None],
+        "sampled_weights_bhw1": torch.where(valid, hint_wt, torch.zeros_like(hint_wt))[..., None],
+    }
 
 
 def depth_for_fusion(opts: Options, out):
@@ -129,6 +197,26 @@ def frame_metrics(depth_pred_bhw1, full_gt_bhw1, mult_a: bool = True):
     return compute_depth_metrics_batched(gt, pred, valid, mult_a=mult_a)
 
 
+def frame_rows(metrics):
+    """Per-frame dicts of python floats from (B,) metric tensors
+    (synchronises)."""
+    host = {k: v.cpu().numpy() for k, v in metrics.items()}
+    b = next(iter(host.values())).shape[0]
+    return [{k: float(v[i]) for k, v in host.items()} for i in range(b)]
+
+
+def write_scores(scores_dir, all_frame_avg, scene_avg):
+    """Final frame and scene averages: JSONs and a printout."""
+    all_frame_avg.compute_final_average()
+    scene_avg.compute_final_average()
+    all_frame_avg.output_json(os.path.join(scores_dir, "all_frame_avg_metrics.json"))
+    scene_avg.output_json(os.path.join(scores_dir, "scene_avg_metrics.json"))
+    print("\nScene averages:")
+    scene_avg.pretty_print_results()
+    print("\nFrame averages:")
+    all_frame_avg.pretty_print_results()
+
+
 def scene_bounds_for_fusion(dataset, scan_id, max_extent: float = 10.0):
     """TSDF bounds: dataset GT bounds when available (get_fuser parity —
     fusers_helper.py:214-260 uses the GT mesh), else fixed +-max_extent."""
@@ -150,6 +238,15 @@ def make_fuser(opts: Options, dataset, scan_id, device) -> Tuple[TSDF, FusionCon
     tsdf = TSDF.from_bounds(scene_bounds_for_fusion(dataset, scan_id),
                             opts.fusion_resolution, device=device)
     cfg = FusionConfig(min_depth=EVAL_MIN_DEPTH, max_depth=opts.fusion_max_depth,
+                       extended_neg_truncation=opts.extended_neg_truncation)
+    return tsdf, cfg
+
+
+def make_hint_fuser(opts: Options, dataset, scan_id, device) -> Tuple[TSDF, FusionConfig]:
+    """Hint-volume fuser locked to 0.04 m / 3.0 m (reference
+    test_offline_two_pass.py:47-69; JAX runners/common.py:227-234)."""
+    tsdf = TSDF.from_bounds(scene_bounds_for_fusion(dataset, scan_id), 0.04, device=device)
+    cfg = FusionConfig(min_depth=EVAL_MIN_DEPTH, max_depth=3.0,
                        extended_neg_truncation=opts.extended_neg_truncation)
     return tsdf, cfg
 

@@ -29,50 +29,11 @@ from doubletake_tpu_torch.data.loader import DataLoader
 from doubletake_tpu_torch.datasets.registry import dataset_from_opts
 from doubletake_tpu_torch.options import Options
 from doubletake_tpu_torch.runners import common
-from doubletake_tpu_torch.tools.tsdf import integrate_depth, raycast
+from doubletake_tpu_torch.runners.no_hint import unique_scans
+from doubletake_tpu_torch.tools.tsdf import integrate_depth
 from doubletake_tpu_torch.utils.metrics import ResultsAverager
 
-HINT_WEIGHT_THRESHOLD = 0.025  # test_incremental.py:244
 FEAT_CACHE_MAX = 64            # keyframe tuples reach back a few dozen frames
-
-
-class StageClock:
-    """Stage boundaries of one frame: CUDA events on a GPU (read after the
-    frame's synchronisation, so timing adds no sync), host clock on the CPU."""
-
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
-        self.marks = []
-
-    def mark(self, name: str):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def elapsed_ms(self):
-        """{stage: ms} between consecutive marks; call after a synchronize."""
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-        return out
-
-
-def render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth):
-    """Hint dict for the model from the running volume (matching resolution)."""
-    hint_d, hint_wt, hint_v = raycast(
-        tsdf, cur["world_T_cam_b44"][0], cur["invK_s0_b44"][0], hint_h, hint_w,
-        min_depth=common.EVAL_MIN_DEPTH, max_depth=fusion_max_depth,
-        num_samples=raycast_samples,
-    )
-    valid = hint_v & (hint_wt >= HINT_WEIGHT_THRESHOLD)
-    return {
-        "depth_hint_bhw1": torch.where(valid, hint_d, torch.full_like(hint_d, float("nan")))[None, ..., None],
-        "hint_mask_bhw1": valid[None, ..., None],
-        "sampled_weights_bhw1": torch.where(valid, hint_wt, torch.zeros_like(hint_wt))[None, ..., None],
-    }
 
 
 def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opts=None):
@@ -88,7 +49,7 @@ def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opt
     def step(tsdf, cur, src, src_feats=None, clock=None):
         if clock is not None:
             clock.mark("start")
-        hint = render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth)
+        hint = common.render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth)
         if clock is not None:
             clock.mark("hint")
         out = model(cur, src, hint=hint, return_mask=True, src_matching_feats=src_feats)
@@ -111,7 +72,7 @@ def make_split_steps(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_dep
 
     @torch.no_grad()
     def hint_step(tsdf, cur):
-        return render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth)
+        return common.render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth)
 
     @torch.no_grad()
     def forward_step(cur, src, hint, src_feats=None):
@@ -125,16 +86,6 @@ def make_split_steps(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_dep
     return hint_step, forward_step, fuse_step
 
 
-def unique_scans(dataset):
-    seen, scans = set(), []
-    for line in dataset.frame_tuples:
-        scan = line.split(" ")[0]
-        if scan not in seen:
-            seen.add(scan)
-            scans.append(scan)
-    return scans
-
-
 def run(opts: Options, model=None):
     """Run the incremental evaluation; returns the frame and scene averages.
 
@@ -143,8 +94,7 @@ def run(opts: Options, model=None):
     """
     if "hint" not in opts.feature_volume_type:
         raise ValueError("incremental mode needs a hint model (mlp_mesh_hint_feature_volume)")
-    if opts.raycast_mip:
-        raise ValueError("raycast_mip is not ported yet")
+    common.reject_unported(opts)
     device = common.resolve_device(opts)
     _, scores_dir, meshes_dir = common.output_dirs(opts, f"incremental_{opts.frame_tuple_type}")
     if model is None:
@@ -162,7 +112,7 @@ def run(opts: Options, model=None):
 
     all_frame_avg = ResultsAverager(opts.name, "frame avg")
     scene_avg = ResultsAverager(opts.name, "scene avg")
-    # wall time of the scan loops, from each scan's first batch to its last
+    # wall time of the scan loops, from each loop's start to its last
     # frame's sync: unlike the per-frame times it includes loader waits
     frames, scan_time = 0, 0.0
 
@@ -177,17 +127,15 @@ def run(opts: Options, model=None):
 
         feat_cache: "OrderedDict[str, torch.Tensor]" = OrderedDict()
         scan_metrics = ResultsAverager(opts.name, f"scan {scan_id}")
-        scan_t0 = None
+        scan_t0 = time.perf_counter()
         for cur_np, src_np in loader:
-            if scan_t0 is None:
-                scan_t0 = time.perf_counter()
             cur, src = common.device_batch(cur_np, src_np, device)
             t0 = time.perf_counter()
             ids = src_np["frame_id_string"][0]
             src_feats = None
             if all(i in feat_cache for i in ids):
                 src_feats = torch.stack([feat_cache[i] for i in ids])[None]
-            clock = StageClock(device)
+            clock = common.StageClock(device)
             out, hint, tsdf = step(tsdf, cur, src, src_feats=src_feats, clock=clock)
             fid = cur_np["frame_id_string"][0]
             feat_cache[fid] = out["matching_feats_bhwc"][0]
@@ -197,7 +145,7 @@ def run(opts: Options, model=None):
 
             metrics = common.frame_metrics(
                 out["depth_pred_s0_bhw1"], torch.as_tensor(cur_np["full_res_depth_bhw1"]).to(device))
-            fm = {k: float(v[0]) for k, v in metrics.items()}   # synchronises
+            fm = common.frame_rows(metrics)[0]          # synchronises
             fm["frame_time"] = time.perf_counter() - t0
             stages = clock.elapsed_ms()
             fm["hint_time"] = stages["hint"] / 1e3
@@ -207,8 +155,7 @@ def run(opts: Options, model=None):
             scan_metrics.update_results(fm)
             all_frame_avg.update_results(fm)
             frames += 1
-        if scan_t0 is not None:
-            scan_time += time.perf_counter() - scan_t0
+        scan_time += time.perf_counter() - scan_t0
 
         scan_metrics.compute_final_average()
         scan_metrics.output_json(os.path.join(scores_dir, f"{scan_id.replace('/', '_')}_metrics.json"))
@@ -216,13 +163,6 @@ def run(opts: Options, model=None):
         tsdf = common.finalize_tsdf(opts, tsdf)
         tsdf.save(os.path.join(meshes_dir, f"{scan_id.replace('/', '_')}_tsdf.npz"))
 
-    all_frame_avg.compute_final_average()
-    scene_avg.compute_final_average()
-    all_frame_avg.output_json(os.path.join(scores_dir, "all_frame_avg_metrics.json"))
-    scene_avg.output_json(os.path.join(scores_dir, "scene_avg_metrics.json"))
-    print("\nScene averages:")
-    scene_avg.pretty_print_results()
-    print("\nFrame averages:")
-    all_frame_avg.pretty_print_results()
+    common.write_scores(scores_dir, all_frame_avg, scene_avg)
     return {"frame_avg": all_frame_avg.final_metrics, "scene_avg": scene_avg.final_metrics,
             "frames": frames, "scan_time": scan_time}

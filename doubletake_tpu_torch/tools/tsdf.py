@@ -15,8 +15,13 @@ src/doubletake/tools/tsdf.py):
     and updates the volume IN PLACE (the JAX runner donates the volume).
   * ``raycast`` — the hint renderer: a dense coarse-then-fine march along
     camera z to the first observed + -> - zero crossing, linear
-    refinement, and the trilinear fusion weight at the surface. Plain
-    torch, as the JAX raycast is plain XLA.
+    refinement, and the trilinear fusion weight at the surface, for one
+    pose or a batch of poses in one march. Plain torch, as the JAX raycast
+    is plain XLA.
+  * ``prepare_static`` — a volume that no longer changes (the offline
+    pass-2 and revisit hint volumes), rounded through bf16 once instead of
+    at every corner read: the counterpart of ``build_ray_table``, whose
+    packed row table only the bf16 rounding of (tsdf.py:561) carries over.
 """
 
 from __future__ import annotations
@@ -123,19 +128,45 @@ def auto_raycast_samples(voxel_size: float, min_depth: float, max_depth: float,
     return 4 * max(8, sc)
 
 
-def _sampler(tsdf: TSDF, ov, dv):
+@dataclasses.dataclass
+class StaticVolume:
+    """A TSDF that no longer changes, with its values and weights already
+    rounded through bf16 (kept as float32). Made by ``prepare_static``."""
+
+    values: torch.Tensor
+    weights: torch.Tensor
+    origin: torch.Tensor
+    voxel_size: float
+
+    @property
+    def dims(self):
+        return tuple(self.values.shape)
+
+
+def prepare_static(tsdf: TSDF) -> StaticVolume:
+    """Round a volume's values and weights through bf16 once, for many
+    raycasts of a volume that stays as it is. Rounding is idempotent, so a
+    raycast of the result is bit-equal to a raycast of ``tsdf``."""
+    return StaticVolume(values=tsdf.values.to(torch.bfloat16).float(),
+                        weights=tsdf.weights.to(torch.bfloat16).float(),
+                        origin=tsdf.origin, voxel_size=tsdf.voxel_size)
+
+
+def _sampler(vol, ov, dv):
     """Trilinear (value, weight, min contributing-corner weight) at camera
     depths, for rays v(s) = ov + s * dv in voxel coordinates.
 
     Values and weights are rounded through bf16 first, as the JAX package's
-    packed ray table stores them (tsdf.py:561). ``wmin`` is the smallest
-    weight among corners whose trilinear coefficient exceeds 1e-3:
-    unobserved voxels hold -1 at weight 0, so a blended weight can look
-    observed at the frustum edge while the blended value fakes a crossing.
+    packed ray table stores them (tsdf.py:561); a ``StaticVolume`` holds
+    them rounded already. ``wmin`` is the smallest weight among corners
+    whose trilinear coefficient exceeds 1e-3: unobserved voxels hold -1 at
+    weight 0, so a blended weight can look observed at the frustum edge
+    while the blended value fakes a crossing.
     """
-    X, Y, Z = tsdf.dims
-    vals = tsdf.values.reshape(-1)
-    wts = tsdf.weights.reshape(-1)
+    X, Y, Z = vol.dims
+    vals = vol.values.reshape(-1)
+    wts = vol.weights.reshape(-1)
+    rounded = isinstance(vol, StaticVolume)
     hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=vals.device) - 1e-4
 
     def sample(zs):                                            # zs: (M, N)
@@ -158,8 +189,10 @@ def _sampler(tsdf: TSDF, ov, dv):
                     wz = fz if e else 1.0 - fz
                     coef = wz * wx * wy
                     idx = base + (a * Y + bb) * Z + e
-                    cv = vals[idx].to(torch.bfloat16).float()
-                    cw = wts[idx].to(torch.bfloat16).float()
+                    cv, cw = vals[idx], wts[idx]
+                    if not rounded:
+                        cv = cv.to(torch.bfloat16).float()
+                        cw = cw.to(torch.bfloat16).float()
                     val = val + cv * coef
                     wt = wt + cw * coef
                     wmin = torch.where(coef > 1e-3, torch.minimum(wmin, cw), wmin)
@@ -177,32 +210,47 @@ def _first_crossing(vals, obs, extra=None):
     return cross.to(torch.uint8).argmax(0), cross.any(0)
 
 
-def raycast(tsdf: TSDF, world_T_cam_44, invK_44, height: int, width: int,
+def raycast(vol, world_T_cam, invK, height: int, width: int,
             min_depth: float = 0.1, max_depth: float = 5.0, num_samples: int = 256,
             weight_epsilon: float = 1e-4):
-    """Render hint depth + confidence by ray-marching the TSDF.
+    """Render hint depth + confidence by ray-marching a ``TSDF`` or a
+    ``StaticVolume``.
 
     Each pixel's ray (pixel centres at +0.5) is clipped to the volume's
     interior box and to [min_depth, max_depth], marched at
     ``num_samples // 4`` coarse depths to bracket the first observed
     + -> - crossing, re-marched with 8 fine samples across the bracket, and
-    the crossing refined linearly. Returns (depth_hw — z-depth, NaN where
-    no surface —, weight_hw — trilinear weight at the surface —, valid_hw).
+    the crossing refined linearly. Returns (depth — z-depth, NaN where no
+    surface —, weight — trilinear weight at the surface —, valid), each
+    (height, width) for a (4, 4) pose and inverse intrinsics, or
+    (B, height, width) for (B, 4, 4) ones.
+
+    A batch is one march over all its rays. Each pose's rays are set up
+    with the same (3, 3) products as a single pose's, and the march is
+    elementwise per ray (with gathers and first-index argmaxes), so a batch
+    is bit-equal to a loop of single-pose calls.
     """
     assert num_samples >= 16, (
         f"num_samples={num_samples}; resolve auto (0) with "
         "runners.common.resolve_raycast_samples before calling raycast")
-    dev = tsdf.values.device
-    X, Y, Z = tsdf.dims
+    single = world_T_cam.dim() == 2
+    if single:
+        world_T_cam, invK = world_T_cam[None], invK[None]
+    dev = vol.values.device
+    X, Y, Z = vol.dims
+    b = world_T_cam.shape[0]
     n = height * width
     ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=dev),
                             torch.arange(width, dtype=torch.float32, device=dev), indexing="ij")
     pix = torch.stack([xs + 0.5, ys + 0.5, torch.ones_like(xs)], 0).reshape(3, n)
-    rays_cam = invK_44[:3, :3] @ pix
-    rays_world = world_T_cam_44[:3, :3] @ rays_cam
-
-    ov = ((world_T_cam_44[:3, 3] - tsdf.origin) / tsdf.voxel_size)[:, None]  # (3, 1)
-    dv = rays_world / tsdf.voxel_size                                          # (3, N)
+    ovs, dvs = [], []
+    for i in range(b):
+        rays_world = world_T_cam[i, :3, :3] @ (invK[i, :3, :3] @ pix)
+        ovs.append(((world_T_cam[i, :3, 3] - vol.origin) / vol.voxel_size)[:, None].expand(3, n))
+        dvs.append(rays_world / vol.voxel_size)
+    # rays in voxel coordinates, v(s) = ov + s * dv, the batch's rays side by side
+    ov = torch.cat(ovs, 1)                                                      # (3, B*n)
+    dv = torch.cat(dvs, 1)                                                      # (3, B*n)
     dims = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=dev)[:, None]
 
     # slab clip against the interior box [0, dims - 1] (trilinear support)
@@ -222,7 +270,7 @@ def raycast(tsdf: TSDF, world_T_cam_44, invK_44, height: int, width: int,
     sc, sf = max(2, num_samples // 4), 8
     zs = t_enter[None] + linspace01(sc, dev)[:, None] * (t_exit - t_enter)[None]  # (Sc, N)
     dz = (t_exit - t_enter) / (sc - 1)
-    sample = _sampler(tsdf, ov, dv)
+    sample = _sampler(vol, ov, dv)
 
     # coarse pass: bracket the first crossing
     vals, _, wmins = sample(zs)
@@ -247,4 +295,5 @@ def raycast(tsdf: TSDF, world_T_cam_44, invK_44, height: int, width: int,
     _, surf_w, _ = sample(depth[None])
     depth = torch.where(valid, depth, torch.full_like(depth, float("nan")))
     weight = torch.where(valid, surf_w[0], torch.zeros_like(depth))
-    return depth.reshape(height, width), weight.reshape(height, width), valid.reshape(height, width)
+    shape = (height, width) if single else (b, height, width)
+    return depth.reshape(shape), weight.reshape(shape), valid.reshape(shape)

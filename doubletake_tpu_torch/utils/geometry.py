@@ -8,10 +8,14 @@ src/doubletake/utils/geometry_utils.py) — these decide checkpoint parity:
     the pose;
   * projection divides by (z + eps) with a |z| > eps guard
     (geometry_utils.py:86-91).
+
+The numpy rotations at the end (``rotx``/``roty``/``rotz``, ``qvec2rotmat``)
+serve the dataset readers' pose conventions on the host.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -92,3 +96,30 @@ def linspace01(num: int, device=None) -> torch.Tensor:
     ramp = torch.arange(num, dtype=torch.float32) * step
     ramp[-1] = 1.0
     return ramp.to(device)
+
+
+def rotx(t):
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+
+
+def roty(t):
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+
+
+def rotz(t):
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+
+
+def qvec2rotmat(q):
+    """COLMAP-convention quaternion (w, x, y, z) to rotation matrix."""
+    w, x, y, z = q
+    return np.array(
+        [
+            [1 - 2 * y**2 - 2 * z**2, 2 * x * y - 2 * w * z, 2 * z * x + 2 * w * y],
+            [2 * x * y + 2 * w * z, 1 - 2 * x**2 - 2 * z**2, 2 * y * z - 2 * w * x],
+            [2 * z * x - 2 * w * y, 2 * y * z + 2 * w * x, 1 - 2 * x**2 - 2 * y**2],
+        ]
+    )

@@ -33,7 +33,7 @@ from doubletake_tpu.runners import incremental as jinc
 
 from doubletake_tpu_torch.checkpoints.convert import variables_to_state_dict
 from doubletake_tpu_torch.options import Options
-from doubletake_tpu_torch.runners import common, incremental
+from doubletake_tpu_torch.runners import common, incremental, no_hint, offline_two_pass, revisit
 from doubletake_tpu_torch.tools.tsdf import TSDF
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -150,8 +150,9 @@ def test_cuda_is_the_default_device():
     assert o.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         common.build_model(o)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        incremental.run(o)
+    for runner in (incremental, no_hint, offline_two_pass, revisit):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            runner.run(o)
 
 
 def test_port_imports_no_jax():
