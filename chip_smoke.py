@@ -17,7 +17,11 @@ Phases (each one fails the run on error):
      groups, b=2), at the offline pass-2 shape (b=16 with a hint), and again
      after a weight is changed in place: max |score difference| <= 1e-3
      (the kernel takes each product as three bf16 products of hi/lo parts,
-     in another order than the float32 plain path);
+     in another order than the float32 plain path); and K1's bf16 mode
+     (bf16 features and weights, one bf16 product) against its plain
+     version at bf16 (the XLA bf16 path) at the flagship shape with and
+     without the hint MLP and at the pass-2 shape: mean |difference| < 5e-3,
+     p99 < 5e-2 (tests/test_fused_volume.py:87-89), the max recorded;
   3. K2, the TSDF integrate, against its plain version on the synthetic
      room's 304x200x152 score volume (0.02 m / 3.5 m) and on its 152x104x80
      hint volume (0.04 m / 3.0 m, extended truncation: offline pass 1 and
@@ -37,9 +41,10 @@ Phases (each one fails the run on error):
      and through the plain path (plain volume, plain integrate) with the
      same weights: s0 depth p99 <= 1e-2 m and Abs-Diff delta <= 5e-4 m;
   6. kernel timings (CUDA events, warm, median) beside each kernel's bound,
-     K1 also at the pass-2 shape (b=16); K1's bound counts its tensor-core
-     products at the bf16 rate, and ``bound_fp32_simt_ms`` keeps the
-     reference's MACs at the fp32 rate;
+     K1 also at the pass-2 shape (b=16) and in its bf16 mode at b=1 and
+     b=16; K1's bound counts its tensor-core products at the bf16 rate
+     (three per multiply-add in the float32 mode, one in the bf16 mode), and
+     ``bound_fp32_simt_ms`` keeps the reference's MACs at the fp32 rate;
   7. the no-hint path: ``runners.no_hint.run`` with the SimpleRecon model
      (``configs/models/simplerecon_model.yaml`` set in code: metadata
      feature volume, EfficientNetV2-S, ResNet matching, U-Net++) in batches
@@ -54,12 +59,28 @@ Phases (each one fails the run on error):
      configuration on the rescan ``synth0@1``, its hint volume from the
      first visit ``synth0`` (pass 1 in batches of 16), the rescan frame by
      frame, fused; its parity check raycasts the hint volume the run saved.
-  In phases 7-9 both kernels must launch as often as the path's batches and
+  10. bf16 serving: ``runners.offline_two_pass.run`` as in phase 8 with
+     compute_dtype "bfloat16" (weights and batch-norm statistics cast to
+     bf16, K1 in its bf16 mode); its first batch's parity is gated as
+     ``bf16_parity`` says (phase 5's 1e-2 m cannot hold for bf16 decoders
+     on random weights), and the bf16-vs-float32 difference of its s0 depth
+     is reported, not gated;
+  11. training: ``training.train_loop.train`` with the flagship
+     configuration at precision 16, batch 16, on ``synthetic`` with
+     fill_depth_hints, for 4 steps with validation at step 4 (one batch of 4
+     per validation set): finite losses, step 4 reached, checkpoints,
+     ``best`` and the final ``.ckpt`` written, the ``.ckpt`` loaded by
+     ``runners.common.init_or_load_params``; K1 must launch 0 times inside
+     the train steps (autograd takes the plain path) and once per
+     validation batch; then, on one fixed batch, the median warm train-step
+     time, samples/s, peak device memory, and the loss over 6 steps at lr
+     1e-5 falling below its first value (``FIXED_BATCH_LR``).
+  In phases 7-10 both kernels must launch as often as the path's batches and
   fused frames imply (counted from the dataset's length and the batch
   size), the metrics must be finite, hint coverage (pass 2, rescan) > 0,
   and the first batch of each model run of the path must agree between the
   kernel path and the plain path within phase 5's budgets (pass 2 and the
-  rescan on the same hint volume); maps/s per pass, step maps/s and the
+  rescan on the same hint volume; phase 10 as above); maps/s per pass, step maps/s and the
   path's peak device memory are recorded.
 
 The last lines are the nvidia-smi line, one JSON line ``{"kernels": [...]}``
@@ -81,11 +102,18 @@ FP32_PEAK = 67e12     # H100 SXM float32 outside the tensor cores, FLOP/s
 BF16_TC_PEAK = 989e12  # H100 SXM bf16 tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12    # H100 SXM HBM3, bytes/s
 K1_TOL = 1e-3
+# K1's bf16 mode against the XLA bf16 path (tests/test_fused_volume.py:87-89)
+K1_BF16_MEAN, K1_BF16_P99 = 5e-3, 5e-2
 PARITY_P99_LIMIT = 1e-2
 ABS_DIFF_DELTA_LIMIT = 5e-4
 PARITY_FRAMES = 4
 BATCH = 16            # the throughput modes' batch size (Options' default)
 PASS2_CASE = f"pass-2 b={BATCH} k=7 D=64 hint"
+TRAIN_STEPS, TRAIN_VAL_BATCH = 4, 4
+# the fixed-batch curve's learning rate: on random weights the flagship
+# diverges at 1e-3 (NaN by step 4 on the card) and does not fall within 6
+# steps at the config's 1e-4; AdamW's first steps move every weight by ~lr
+FIXED_BATCH_LR = 1e-5
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -281,6 +309,54 @@ def check_fused_volume(device):
     errs["after weight change"] = err
     return {"max_abs_err": max(errs.values()), "errors": errs, "args": args,
             "pass2_args": pass2}
+
+
+def bf16_case(args):
+    """K1 arguments in the bf16 mode: features and MLP weights in bf16, the
+    hint's weight channel rounded to bf16 (as the module hands it over)."""
+    import torch
+
+    def cast(mlp):
+        return None if mlp is None else [(w.bfloat16(), b.bfloat16()) for w, b in mlp]
+
+    out = [args[0].bfloat16(), args[1].bfloat16(), *args[2:7], cast(args[7])]
+    if len(args) > 8:
+        hint = args[9].clone()
+        hint[..., 2] = hint[..., 2].bfloat16().float()
+        out += [cast(args[8]), hint]
+    return tuple(out)
+
+
+def check_fused_volume_bf16(device, k1):
+    """K1's bf16 mode against its plain version at bf16 (mean and p99 of
+    |difference| within the reduced-precision budgets)."""
+    import torch
+
+    from doubletake_tpu_torch.ops import fused_volume as fv
+
+    cases = [("flagship k=7 D=64 hint", bf16_case(k1["args"])),
+             ("flagship k=7 D=64 no hint", bf16_case(k1["args"][:8])),
+             (PASS2_CASE, bf16_case(k1["pass2_args"]))]
+    errs = {}
+    for name, case in cases:
+        plain_args = case if len(case) < 10 else (*case[:-1], torch.nan_to_num(case[-1], nan=0.0))
+        with torch.no_grad():
+            kern = fv.fused_feature_volume(*case)
+            plain = fv.feature_volume_plain(*plain_args)
+        sync()
+        if kern.dtype != torch.float32 or not torch.isfinite(kern).all():
+            raise RuntimeError(f"K1 bf16 {name}: scores {kern.dtype}, finite "
+                               f"{bool(torch.isfinite(kern).all())}")
+        diff = (kern - plain).abs().flatten()
+        row = {"mean": float(diff.mean()), "p99": float(torch.quantile(diff[::3], 0.99)),
+               "max": float(diff.max())}
+        errs[name] = row
+        log(f"K1 bf16 {name}: |kernel - plain| mean {row['mean']:.3e}, p99 {row['p99']:.3e}, "
+            f"max {row['max']:.3e} (limits {K1_BF16_MEAN} / {K1_BF16_P99})")
+        if not (row["mean"] < K1_BF16_MEAN and row["p99"] < K1_BF16_P99):
+            raise RuntimeError(f"K1's bf16 mode disagrees with its plain version at {name}: {row}")
+    return {"max_abs_err": max(r["max"] for r in errs.values()), "errors": errs,
+            "args": cases[0][1], "pass2_args": cases[2][1]}
 
 
 def look_at(pos, fwd):
@@ -898,6 +974,239 @@ def run_revisit_path(out_dir, model):
     return summary
 
 
+def p99_max(a, b):
+    """The largest per-frame p99, and the max, of |a - b| over a batch."""
+    import numpy as np
+
+    d = (a.float() - b.float()).abs().flatten(1).cpu().numpy()
+    return {"p99": float(np.percentile(d, 99, axis=1).max()), "max": float(d.max())}
+
+
+def bf16_parity(name, model, cur, src, hint, gt):
+    """Kernel path against plain path of a bf16 model on one batch.
+
+    The plain path's volume is float32 (the XLA bf16 path's), so its
+    decoders compute in float32; the kernel path casts the volume to bf16
+    and runs them in bf16. With random weights the norm-free decoders
+    amplify bf16 rounding to centimetres (two bf16 evaluations that differ
+    only in their convolution algorithms differ by ~0.1 m at p99:
+    scripts/probe_bf16_paths.py), so phase 5's 1e-2 m cannot hold for a
+    bf16 path. Gated instead: (1) K1 on the model's own features, against
+    the plain volume: mean < 5e-3, p99 < 5e-2 (phase 2's bf16 budgets);
+    (2) the s0 depth: p99 |kernel - plain| within 1.5x the p99 of the plain
+    volume cast to bf16 through the same bf16 decoders (the decoders' own
+    rounding) against the plain path, and the Abs-Diff delta within 5e-4 m
+    or 3x the decoders' own delta, whichever is larger (the kernel path
+    rounds twice where the decoders' comparison rounds once: K1's bf16
+    products, then the decoders). A kernel fault (scores off by order 1, as
+    a wrong tile layout gives) moves depths by metres and fails all three."""
+    import numpy as np
+    import torch
+
+    from doubletake_tpu_torch.models import cost_volume
+    from doubletake_tpu_torch.ops.fused_volume import feature_volume_plain
+    from doubletake_tpu_torch.runners import common
+
+    plain = plain_copy(model)
+    with torch.no_grad():
+        vk = model(cur, src, hint=hint, stop_after="cost_volume")["cost_volume_bhwd"]
+        vp = plain(cur, src, hint=hint, stop_after="cost_volume")["cost_volume_bhwd"]
+        dv = (vk.float() - vp).abs().flatten()
+        volume = {"mean": float(dv.mean()), "p99": float(torch.quantile(dv[::7], 0.99)),
+                  "max": float(dv.max())}
+        del vk, vp, dv
+        dk = model(cur, src, hint=hint)["depth_pred_s0_bhw1"]
+        dp = plain(cur, src, hint=hint)["depth_pred_s0_bhw1"]
+        kernel = cost_volume.fused_feature_volume
+        cost_volume.fused_feature_volume = feature_volume_plain
+        try:   # the kernel path's types, with the plain volume
+            dc = model(cur, src, hint=hint)["depth_pred_s0_bhw1"]
+        finally:
+            cost_volume.fused_feature_volume = kernel
+    abs_diff = {k: common.frame_metrics(d, gt)["abs_diff"] for k, d in
+                (("kernel", dk), ("plain", dp), ("decoders", dc))}
+    row = {"frames": int(dk.shape[0]), "volume": volume, "kernel_vs_plain": p99_max(dk, dp),
+           "bf16_decoders_vs_plain": p99_max(dc, dp),
+           "abs_diff_delta_m_max": float((abs_diff["kernel"] - abs_diff["plain"]).abs().max()),
+           "decoders_abs_diff_delta_m_max": float(
+               (abs_diff["decoders"] - abs_diff["plain"]).abs().max())}
+    log(f"parity {name}: K1 on the model's features |kernel - plain| mean {volume['mean']:.2e}, "
+        f"p99 {volume['p99']:.2e}; s0 p99 kernel vs plain {row['kernel_vs_plain']['p99']:.2e} m "
+        f"against the bf16 decoders' own {row['bf16_decoders_vs_plain']['p99']:.2e} m; "
+        f"Abs-Diff delta <= {row['abs_diff_delta_m_max']:.2e} m against the decoders' own "
+        f"{row['decoders_abs_diff_delta_m_max']:.2e} m")
+    if not (volume["mean"] < K1_BF16_MEAN and volume["p99"] < K1_BF16_P99
+            and row["kernel_vs_plain"]["p99"] <= 1.5 * row["bf16_decoders_vs_plain"]["p99"]
+            and row["abs_diff_delta_m_max"] <= max(
+                ABS_DIFF_DELTA_LIMIT, 3 * row["decoders_abs_diff_delta_m_max"])):
+        raise RuntimeError(f"bf16 parity failed on {name}: {row}")
+    return row
+
+
+def run_offline_bf16_path(out_dir, fp32_model, batch_np):
+    """Phase 10: the offline path with compute_dtype "bfloat16"."""
+    import numpy as np
+    import torch
+
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.runners import common, offline_two_pass
+
+    opts = throughput_options(out_dir, "chip_smoke_offline_bf16")
+    opts.compute_dtype = "bfloat16"
+    device = torch.device(opts.device)
+    model = common.init_or_load_params(opts, common.build_model(opts))
+    dtypes = {p.dtype for p in model.parameters()} | {b.dtype for b in model.buffers()
+                                                       if b.is_floating_point()}
+    if dtypes != {torch.bfloat16}:
+        raise RuntimeError(f"offline bf16: the model holds {dtypes}")
+    frames = len(dataset_from_opts(opts, split=opts.split))
+    expected = {"fused_volume": 2 * -(-frames // BATCH), "integrate": 2 * frames}
+    cur, src = common.device_batch(*batch_np, device)
+    gt = torch.as_tensor(batch_np[0]["full_res_depth_bhw1"]).to(device)
+    hint = common.empty_hint(cur["image_bhw3"].shape[0], opts.image_height, opts.image_width,
+                             device)
+    parity = bf16_parity("offline bf16 pass 1 batch 0", model, cur, src, hint, gt)
+    with torch.no_grad():
+        # the same weights in float32 (the same seed): reported, not gated
+        d16 = model(cur, src, hint=hint)["depth_pred_s0_bhw1"]
+        d32 = fp32_model(cur, src, hint=hint)["depth_pred_s0_bhw1"]
+    parity["vs_fp32"] = p99_max(d16, d32)
+    log(f"offline bf16 vs float32, batch 0: s0 p99 <= {parity['vs_fp32']['p99']:.2e} m, "
+        f"max {parity['vs_fp32']['max']:.2e} m (reported, not gated)")
+    del cur, src, gt, d16, d32
+    res, summary = drive("offline bf16", offline_two_pass.run, opts, model, expected)
+    fa = res["frame_avg"]
+    require_finite("offline bf16", fa, ("abs_diff", "abs_rel", "a5", "frame_time",
+                                        "hint_coverage"))
+    if res["frames"] != frames or not fa["hint_coverage"] > 0:
+        raise RuntimeError(f"offline bf16: {res['frames']} of {frames} frames, "
+                           f"hint coverage {fa['hint_coverage']}")
+    pt = res["pass_time"]
+    summary.update({
+        "frames": frames, "pass1_maps_per_s": frames / pt["pass1"],
+        "pass2_maps_per_s": frames / pt["pass2"], "step_maps_per_s": 1.0 / fa["frame_time"],
+        "hint_coverage": fa["hint_coverage"], "abs_diff": fa["abs_diff"],
+        "parity_pass1": parity,
+    })
+    log(f"offline bf16: {frames} frames, pass 1 {summary['pass1_maps_per_s']:.2f} / pass 2 "
+        f"{summary['pass2_maps_per_s']:.2f} maps/s over the loops, "
+        f"{summary['step_maps_per_s']:.2f} by mean pass-2 step, hint coverage "
+        f"{fa['hint_coverage']:.3f}, peak {summary['peak_mem_gib']:.2f} GiB, "
+        f"launches {summary['launches']}")
+    return summary
+
+
+def train_options(out_dir):
+    """The flagship configuration as configs/models/doubletake_model.yaml
+    trains it (precision 16), batch 16 on one card, on ``synthetic``."""
+    o = throughput_options(out_dir, "chip_smoke_train")
+    o.log_dir = out_dir
+    o.precision = 16
+    o.depth_hint_aug = 0.5
+    o.max_steps = TRAIN_STEPS
+    o.val_interval = TRAIN_STEPS
+    o.val_batches = 1
+    o.val_batch_size = TRAIN_VAL_BATCH
+    o.log_interval = 1
+    o.image_log_interval = 10 ** 9
+    o.num_workers = 8
+    return o
+
+
+def run_train_path(out_dir):
+    """Phase 11: train() for a few steps, then timed steps on a fixed batch."""
+    import torch
+
+    from doubletake_tpu_torch.data.loader import DataLoader
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.runners import common
+    from doubletake_tpu_torch.training import train_loop as tl
+
+    opts = train_options(out_dir)
+    device = torch.device(opts.device)
+    val_sets = 4   # fill_depth_hints: hint-aug 0.5 / 1.0 / 0.0 / 0.0
+    counts = {}
+    validate = tl.validate
+
+    def counted_validate(*args, **kwargs):
+        counts["in_train_steps"] = fv.fused_feature_volume.launches
+        before = fv.fused_feature_volume.launches
+        out = validate(*args, **kwargs)
+        counts["in_validation"] = fv.fused_feature_volume.launches - before
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    fv.fused_feature_volume.launches = 0
+    ig.fused_integrate.launches = 0
+    tl.validate = counted_validate
+    t0 = time.perf_counter()
+    try:
+        res = tl.train(opts)
+    finally:
+        tl.validate = validate
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"fused_volume": fv.fused_feature_volume.launches,
+                "integrate": ig.fused_integrate.launches}
+    losses = res["losses"]
+    if res["step"] != TRAIN_STEPS or not all(v == v and abs(v) != float("inf")
+                                             for v in losses.values()):
+        raise RuntimeError(f"train: step {res['step']}, losses {losses}")
+    if counts != {"in_train_steps": 0, "in_validation": val_sets} or launches != {
+            "fused_volume": val_sets, "integrate": 0}:
+        raise RuntimeError(f"train: K1 launches {counts}, all launches {launches}; expected 0 "
+                           f"in the train steps and {val_sets} in the validation")
+    log_dir = os.path.join(opts.log_dir, opts.name)
+    for rel in ("options.yaml", "code/doubletake_tpu_torch", "checkpoints", "best",
+                "final_weights.ckpt"):
+        if not os.path.exists(os.path.join(log_dir, rel)):
+            raise RuntimeError(f"train: {rel} was not written")
+    load_opts = flagship_options(out_dir)
+    load_opts.load_weights_from_checkpoint = res["final_weights"]
+    loaded = common.init_or_load_params(load_opts, common.build_model(load_opts)).state_dict()
+    trained = res["model"].state_dict()
+    if sorted(loaded) != sorted(trained) or not all(torch.equal(loaded[k], trained[k])
+                                                    for k in trained):
+        raise RuntimeError("train: the final .ckpt does not load the trained weights")
+    summary = {"wall_s": wall, "steps": res["step"], "losses": losses, "launches": launches,
+               "k1_launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del res, loaded, trained
+    torch.cuda.empty_cache()
+
+    # timed steps on one fixed batch, fixed augmentation
+    ds = dataset_from_opts(opts, split="train", disable_flip=True)
+    batch = next(iter(DataLoader(ds, BATCH, shuffle=True, num_workers=opts.num_workers,
+                                 seed=opts.random_seed)))
+    cur, src = tl.train_batch(*batch, device)
+    opts.lr = FIXED_BATCH_LR
+    model = tl.init_train_state(opts, common.build_model(opts))
+    optimizer, schedule = tl.make_optimizer(opts, model)
+    step = tl.make_train_step(tl.train_model_for(opts, model), optimizer, schedule,
+                              use_hint_model=True, precision=16)
+    aug, flip = tl.draw_step_randomness(torch.Generator().manual_seed(7), BATCH,
+                                        src["image_bkhw3"].shape[1], device)
+    torch.cuda.reset_peak_memory_stats()
+    curve, times = [], []
+    for _ in range(6):
+        sync()
+        t = time.perf_counter()
+        curve.append(float(step(cur, src, aug, flip)["loss"]))
+        times.append(time.perf_counter() - t)
+    warm = sorted(times[1:])[len(times[1:]) // 2]
+    summary.update({"fixed_batch_losses": curve, "step_ms": warm * 1e3,
+                    "step_ms_all": [t * 1e3 for t in times], "samples_per_s": BATCH / warm,
+                    "step_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if not (all(v == v for v in curve) and min(curve[1:]) < curve[0]):
+        raise RuntimeError(f"train: the loss on a fixed batch did not fall: {curve}")
+    log(f"train: {summary['steps']} steps in {wall:.1f} s, losses {losses['loss']:.4f}, K1 "
+        f"launches {counts}, peak {summary['peak_mem_gib']:.2f} GiB; fixed batch: "
+        f"{summary['step_ms']:.1f} ms a step ({summary['samples_per_s']:.1f} samples/s), peak "
+        f"{summary['step_peak_mem_gib']:.2f} GiB, loss {[round(v, 4) for v in curve]}")
+    return summary
+
+
 # -------------------------------------------------------------- kernel line
 
 
@@ -918,8 +1227,9 @@ def time_k1(args):
     macs = b * d * h * w * (nin * hid + hid * hid + hid + 3 * 12 + 12 * 12 + 12)
     # the kernel's tensor-core products: per plane 23 rows a view and W2,
     # per pixel the c + 3 + 3k channels all planes share; three bf16
-    # products each (hi/lo split)
+    # products each (hi/lo split) in the float32 mode, one in the bf16 mode
     macs_tc = b * h * w * (d * (23 * k * hid + hid * hid) + (c + 3 + 3 * k) * hid)
+    products = 1 if cur.dtype == torch.bfloat16 else 3
     # and outside the tensor cores: + plane * w, LeakyReLU . w3, hint MLP
     macs_simt = b * d * h * w * (2 * hid + 3 * 12 + 12 * 12 + 12)
     mlp_tensors = [x for pair in args[7] + args[8] for x in pair]
@@ -927,7 +1237,7 @@ def time_k1(args):
     with torch.no_grad():
         ms = median_ms(lambda: fv.fused_feature_volume(*args), reps=20, inner=10)
         plain_ms = median_ms(lambda: fv.feature_volume_plain(*args[:-1], hint), reps=5, warmup=1)
-    t_ops = max(3 * 2 * macs_tc / BF16_TC_PEAK, 2 * macs_simt / FP32_PEAK) * 1e3
+    t_ops = max(products * 2 * macs_tc / BF16_TC_PEAK, 2 * macs_simt / FP32_PEAK) * 1e3
     t_bytes = bytes_k1 / HBM_RATE * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -936,7 +1246,7 @@ def time_k1(args):
             "bound_fp32_simt_ms": 2 * macs / FP32_PEAK * 1e3}
 
 
-def time_kernels(k1, k2, launches):
+def time_kernels(k1, k1_bf16, k2, launches, bf16_launches):
     from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.tools.tsdf import TSDF
 
@@ -944,15 +1254,22 @@ def time_kernels(k1, k2, launches):
     # K1: one call computes the (1, 64, 96, 128) hint volume; and the
     # (16, 64, 96, 128) volume of an offline pass-2 batch
     pass2 = {"b": BATCH, "max_abs_err": k1["errors"][PASS2_CASE], **time_k1(k1["pass2_args"])}
+    # the bf16 mode at both shapes; its launches are the bf16 serving path's
+    bf16 = {"launches": bf16_launches, "max_abs_err": k1_bf16["max_abs_err"],
+            "errors": k1_bf16["errors"], **time_k1(k1_bf16["args"]),
+            "pass2_shape": {"b": BATCH, **time_k1(k1_bf16["pass2_args"])}}
     rows.append({
         "name": "fused_feature_volume", "route": "cuda",
         "source": "doubletake_tpu_torch/csrc/fused_volume.cu",
         "replaces": "doubletake_tpu/ops/pallas/fused_volume.py:511",
         "launches": launches["fused_volume"], "max_abs_err": k1["max_abs_err"],
-        "library_ms": None, **time_k1(k1["args"]), "pass2_shape": pass2,
+        "library_ms": None, **time_k1(k1["args"]), "pass2_shape": pass2, "bf16": bf16,
     })
     log(f"fused_feature_volume at b={BATCH}: {pass2['ms']:.3f} ms (plain {pass2['plain_ms']:.3f} "
         f"ms, bound {pass2['bound_ms']:.4f} ms by {pass2['bound_by']})")
+    for tag, row in (("b=1", bf16), (f"b={BATCH}", bf16["pass2_shape"])):
+        log(f"fused_feature_volume bf16 mode at {tag}: {row['ms']:.3f} ms (plain "
+            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']})")
 
     # K2: one fusion step on the 304x200x152 volume with the third frame's
     # depth. Which voxels update depends on the depth and the pose only, not
@@ -1030,9 +1347,11 @@ def main(argv):
                "cuda": torch.version.cuda, "build_s": build_s,
                "nvcc": kbuild.build_logs}
     k1 = check_fused_volume(device)
+    k1_bf16 = check_fused_volume_bf16(device, k1)
     k2 = check_integrate(device)
     results["k1_max_abs_err"] = k1["max_abs_err"]
     results["k1_errors"] = k1["errors"]
+    results["k1_bf16_errors"] = k1_bf16["errors"]
     results["k2_max_abs_err"] = k2["max_abs_err"]
 
     if not kernels_only:
@@ -1047,19 +1366,22 @@ def main(argv):
             results["parity"] = whole_step_parity(opts, model)
             if "--profile" in argv:
                 results["profile"] = profile_main_step(opts, model)
-            kernels = time_kernels(k1, k2, main_summary["launches"])
-
             batch_np = first_batch(opts, "synth0", BATCH)
             paths = {"no_hint": run_no_hint_path(tmp, batch_np)}
             paths["offline_two_pass"] = run_offline_path(tmp, model, batch_np,
                                                          "--profile" in argv)
             paths["revisit"] = run_revisit_path(tmp, model)
+            paths["offline_bf16"] = run_offline_bf16_path(tmp, model, batch_np)
+            del model
+            paths["train"] = run_train_path(tmp)
             results["paths"] = paths
+            kernels = time_kernels(k1, k1_bf16, k2, main_summary["launches"],
+                                   paths["offline_bf16"]["launches"]["fused_volume"])
         by_path = {"incremental": main_summary["launches"],
                    **{p: v["launches"] for p, v in paths.items()}}
     else:
         # the paths did not run: their launch counts were not measured
-        kernels = time_kernels(k1, k2, {"fused_volume": None, "integrate": None})
+        kernels = time_kernels(k1, k1_bf16, k2, {"fused_volume": None, "integrate": None}, None)
         by_path = None
     for row, key in zip(kernels, ("fused_volume", "integrate")):
         row["launches_by_path"] = by_path and {p: n[key] for p, n in by_path.items()}

@@ -56,13 +56,23 @@
 //     parameters, read as FMA operands.
 //
 // Not carried over from the TPU kernel: the MXU one-hot warps, the BAND row
-// window (and its zeros outside the band), single-pass bf16 operands and the
-// (8, 128) row blocking.
+// window (and its zeros outside the band) and the (8, 128) row blocking.
+//
+// The bf16 mode (template flag BF, taken for bf16 features under the bf16
+// compute dtype) computes what the TPU kernel computes there: bf16 current and
+// source features (each tap one 8-byte load, half the fp32 mode's bytes),
+// every MLP operand rounded to bf16 and each product ONE bf16 product with
+// fp32 sums, layer 1's activations rounded to bf16 as layer 2's A operand,
+// fp32 scores. It samples at the bf16-rounded grid coordinate
+// g = bf16(2 px / W - 1), as its plain version (the XLA bf16 path, which
+// casts the sampling grid to the feature type) does. The fp32 mode is
+// unchanged by it: the flag only removes work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+#include <type_traits>
 
 namespace {
 
@@ -114,6 +124,17 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// x rounded to the nearest bf16
+__device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// four consecutive channels as loaded: fp32, or bf16 pairs (low half first)
+__device__ __forceinline__ float4 unpack(float4 v) { return v; }
+__device__ __forceinline__ float4 unpack(uint2 v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 // hi/lo bf16 pairs of (x, y): x in the low half, as the fragments hold them
 __device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
@@ -132,6 +153,14 @@ __device__ __forceinline__ void split_a(const float r0[4], const float r1[4], ui
   split2(r1[2], r1[3], ah[3], al[3]);
 }
 
+// the same fragment rounded to bf16 (the bf16 mode's one product)
+__device__ __forceinline__ void round_a(const float r0[4], const float r1[4], uint32_t ah[4]) {
+  ah[0] = pack_bf16(__floats2bfloat162_rn(r0[0], r0[1]));
+  ah[1] = pack_bf16(__floats2bfloat162_rn(r1[0], r1[1]));
+  ah[2] = pack_bf16(__floats2bfloat162_rn(r0[2], r0[3]));
+  ah[3] = pack_bf16(__floats2bfloat162_rn(r1[2], r1[3]));
+}
+
 // ---- mma.sync, for u (once per item)
 
 __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
@@ -142,17 +171,25 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0
 }
 
 // acc += A . B for one 16-row K step, B as mma.sync fragments in global
-// memory ({hi k0k1, hi k8k9, lo k0k1, lo k8k9} per lane and column group)
+// memory ({hi k0k1, hi k8k9, lo k0k1, lo k8k9} per lane and column group);
+// the bf16 mode takes the hi parts only
+template <bool BF>
 __device__ __forceinline__ void kstep_sync(float acc[NT16][4], const float r0[4],
                                            const float r1[4], const uint4* __restrict__ bstep,
                                            int lane) {
   uint32_t ah[4], al[4];
-  split_a(r0, r1, ah, al);
+  if constexpr (BF) {
+    round_a(r0, r1, ah);
+  } else {
+    split_a(r0, r1, ah, al);
+  }
 #pragma unroll
   for (int j = 0; j < NT16; ++j) {
     const uint4 b = __ldg(bstep + j * 32 + lane);
-    mma(acc[j], al, b.x, b.y);
-    mma(acc[j], ah, b.z, b.w);
+    if constexpr (!BF) {
+      mma(acc[j], al, b.x, b.y);
+      mma(acc[j], ah, b.z, b.w);
+    }
     mma(acc[j], ah, b.x, b.y);
   }
 }
@@ -217,6 +254,17 @@ __device__ __forceinline__ void wgmma3(float (&d)[NJ][4], const uint32_t ah[4],
   wgmma(d, ah, tile_desc(saddr));
 }
 
+// one K step in either mode: three products (fp32), or the hi parts' one (bf16)
+template <bool BF, int NJ>
+__device__ __forceinline__ void wgmma_step(float (&d)[NJ][4], const uint32_t ah[4],
+                                           const uint32_t al[4], uint32_t saddr) {
+  if constexpr (BF) {
+    wgmma(d, ah, tile_desc(saddr));
+  } else {
+    wgmma3(d, ah, al, saddr);
+  }
+}
+
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -245,24 +293,38 @@ __device__ __forceinline__ void pin(uint32_t (&a)[4]) {
 // (0 for a tap outside the image). The packed weights order each 16-channel
 // K step so that A columns 2t, 2t+1, 2t+8, 2t+9 are channels 4t..4t+3
 // (ops/fused_volume.py FRAGMENT_CHANNELS). Apart from finish_row so that the
-// loads are in flight a view ahead.
+// loads are in flight a view ahead. The bf16 mode keeps the raw bf16 pairs
+// (8 bytes a tap) until finish_row.
+template <bool BF>
 struct Taps {
-  float4 a[4];
+  typename std::conditional<BF, uint2, float4>::type a[4];
   float wt[4];
   float z;         // projected depth + 1e-8
 };
 
-__device__ __forceinline__ Taps fetch_row(const float* __restrict__ feats,
-                                          const float* __restrict__ Pv, float ptx, float pty,
-                                          float ptz, bool live, int H, int W, int t) {
-  Taps o;
+template <bool BF>
+__device__ __forceinline__ Taps<BF> fetch_row(const void* __restrict__ feats,
+                                              const float* __restrict__ Pv, float ptx, float pty,
+                                              float ptz, bool live, int H, int W, int t) {
+  Taps<BF> o;
   const float cx = Pv[0] * ptx + Pv[1] * pty + Pv[2] * ptz + Pv[3];
   const float cy = Pv[4] * ptx + Pv[5] * pty + Pv[6] * ptz + Pv[7];
   const float cz = Pv[8] * ptx + Pv[9] * pty + Pv[10] * ptz + Pv[11];
   o.z = cz + 1e-8f;
   const float scale = fabsf(cz) > 1e-8f ? __frcp_rn(o.z) : 1.f;
-  // grid_sample's chain g = 2px/W - 1, i = ((g + 1)W - 1)/2 is i = px - 1/2
-  const float ix = cx * scale - 0.5f, iy = cy * scale - 0.5f;
+  float ix, iy;
+  if constexpr (BF) {
+    // grid_sample's chain g = 2px/W - 1, i = ((g + 1)W - 1)/2 on the grid
+    // rounded to bf16, as the XLA bf16 path samples
+    const float gx = bf16r(2.f * (cx * scale) / float(W) - 1.f);
+    const float gy = bf16r(2.f * (cy * scale) / float(H) - 1.f);
+    ix = ((gx + 1.f) * float(W) - 1.f) * 0.5f;
+    iy = ((gy + 1.f) * float(H) - 1.f) * 0.5f;
+  } else {
+    // the same chain in fp32 is i = px - 1/2
+    ix = cx * scale - 0.5f;
+    iy = cy * scale - 0.5f;
+  }
   const float x0 = floorf(ix), y0 = floorf(iy);
   const float wx1 = ix - x0, wy1 = iy - y0;
   const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
@@ -273,13 +335,19 @@ __device__ __forceinline__ Taps fetch_row(const float* __restrict__ feats,
   const bool in[4] = {vx0 && vy0, vx1 && vy0, vx0 && vy1, vx1 && vy1};
   const float wts[4] = {wx0 * wy0, wx1 * wy0, wx0 * wy1, wx1 * wy1};
   const int xi = int(fminf(fmaxf(x0, -1.f), float(W))), yi = int(fminf(fmaxf(y0, -1.f), float(H)));
-  const float* p00 = feats + (yi * W + xi) * C + 4 * t;
   const int offs[4] = {0, C, W * C, W * C + C};
+  const int base = (yi * W + xi) * C + 4 * t;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     o.wt[q] = in[q] ? wts[q] : 0.f;
-    o.a[q] = in[q] ? __ldg(reinterpret_cast<const float4*>(p00 + offs[q]))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (BF) {
+      const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(feats) + base + offs[q];
+      o.a[q] = in[q] ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0u, 0u);
+    } else {
+      const float* p = static_cast<const float*>(feats) + base + offs[q];
+      o.a[q] = in[q] ? __ldg(reinterpret_cast<const float4*>(p))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
   return o;
 }
@@ -290,8 +358,11 @@ struct ViewOut {
 };
 
 // The rest of one (pixel row, view, plane): the warped channels, the dot
-// with the current features (over the quad), and this lane's scalars.
-__device__ __forceinline__ ViewOut finish_row(const Taps& tp, const float* __restrict__ ctr,
+// with the current features (over the quad), and this lane's scalars. In
+// the bf16 mode the warped channels are rounded to bf16 before the dot, as
+// the plain path's bf16 warp is.
+template <bool BF>
+__device__ __forceinline__ ViewOut finish_row(const Taps<BF>& tp, const float* __restrict__ ctr,
                                               float ptx, float pty, float ptz,
                                               const float cr[3], const float cf[4], int t) {
   ViewOut o;
@@ -299,10 +370,15 @@ __device__ __forceinline__ ViewOut finish_row(const Taps& tp, const float* __res
   for (int i = 0; i < 4; ++i) o.f[i] = 0.f;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    o.f[0] += tp.a[q].x * tp.wt[q];
-    o.f[1] += tp.a[q].y * tp.wt[q];
-    o.f[2] += tp.a[q].z * tp.wt[q];
-    o.f[3] += tp.a[q].w * tp.wt[q];
+    const float4 a = unpack(tp.a[q]);
+    o.f[0] += a.x * tp.wt[q];
+    o.f[1] += a.y * tp.wt[q];
+    o.f[2] += a.z * tp.wt[q];
+    o.f[3] += a.w * tp.wt[q];
+  }
+  if constexpr (BF) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o.f[i] = bf16r(o.f[i]);
   }
   float dot = o.f[0] * cf[0] + o.f[1] * cf[1] + o.f[2] * cf[2] + o.f[3] * cf[3];
   dot += __shfl_xor_sync(0xffffffffu, dot, 1);
@@ -317,10 +393,10 @@ __device__ __forceinline__ ViewOut finish_row(const Taps& tp, const float* __res
   return o;
 }
 
-template <int K>
+template <int K, bool BF>
 __global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
-    const float* __restrict__ cur,      // (B, N, C)
-    const float* __restrict__ src,      // (B, K, N, C)
+    const void* __restrict__ cur,       // (B, N, C), fp32 or (BF) bf16
+    const void* __restrict__ src,       // (B, K, N, C), the same type
     const float* __restrict__ rays,     // (B, 3, N) unit-depth rays of the current view
     const float* __restrict__ proj,     // (B, K, 12) rows of src_K @ src_T_cur, [:3, :4]
     const float* __restrict__ centers,  // (B, K, 3) source camera centres, current frame
@@ -378,15 +454,21 @@ __global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
     for (int r = 0; r < 2; ++r) {
       const int n = live[r] ? nrow[r] : 0;
       const float* rb = rays + size_t(b) * 3 * N + n;
-      const float* cn = cur + (size_t(b) * N + n) * C + 4 * t;
+      const size_t cn = (size_t(b) * N + n) * C + 4 * t;
 #pragma unroll
       for (int q = 0; q < 3; ++q) ray[r][q] = live[r] ? rb[q * N] : 0.f;
       const float nrm = fmaxf(sqrtf(ray[r][0] * ray[r][0] + ray[r][1] * ray[r][1] +
                                     ray[r][2] * ray[r][2]), 1e-12f);
 #pragma unroll
       for (int q = 0; q < 3; ++q) cr[r][q] = ray[r][q] / nrm;
-      const float4 a = live[r] ? *reinterpret_cast<const float4*>(cn)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live[r]) {
+        if constexpr (BF) {
+          a = unpack(*reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(cur) + cn));
+        } else {
+          a = *reinterpret_cast<const float4*>(static_cast<const float*>(cur) + cn);
+        }
+      }
       cf[r][0] = a.x; cf[r][1] = a.y; cf[r][2] = a.z; cf[r][3] = a.w;
     }
     float hdep = 0.f, hval = 0.f, hwt = 0.f;
@@ -402,7 +484,7 @@ __global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
       const float2 bj = *reinterpret_cast<const float2*>(vec_s + V_B1 + 8 * j + 2 * t);
       acc[j][0] = bj.x; acc[j][1] = bj.y; acc[j][2] = bj.x; acc[j][3] = bj.y;
     }
-    kstep_sync(acc, cf[0], cf[1], w1i, lane);
+    kstep_sync<BF>(acc, cf[0], cf[1], w1i, lane);
     const float* pb = pose + size_t(b) * 3 * K;
     for (int s = 1; s < isteps; ++s) {
       float r0[4], r1[4];
@@ -415,22 +497,24 @@ __global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
         r0[e] = ch == 0 ? cr[0][0] : ch == 1 ? cr[0][1] : ch == 2 ? cr[0][2] : pv;
         r1[e] = ch == 0 ? cr[1][0] : ch == 1 ? cr[1][1] : ch == 2 ? cr[1][2] : pv;
       }
-      kstep_sync(acc, r0, r1, w1i + s * FRAG_STEP, lane);
+      kstep_sync<BF>(acc, r0, r1, w1i + s * FRAG_STEP, lane);
     }
 #pragma unroll
     for (int j = 0; j < NT16; ++j) u_s[j * 32 + lane] = make_float4(acc[j][0], acc[j][1],
                                                                     acc[j][2], acc[j][3]);
 
     // the taps of the next view, loaded one view ahead
-    const float* src_b = src + size_t(b) * K * N * C;
+    const size_t esz = BF ? sizeof(__nv_bfloat16) : sizeof(float);
+    const char* src_b = static_cast<const char*>(src) + size_t(b) * K * N * C * esz;
     const float* proj_b = proj + size_t(b) * K * 12;
     const float* ctr_b = centers + size_t(b) * K * 3;
-    Taps tp[2];   // [row]
+    Taps<BF> tp[2];   // [row]
     auto fetch = [&](int dd, int vv) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        tp[r] = fetch_row(src_b + size_t(vv) * N * C, proj_b + vv * 12, planes[dd] * ray[r][0],
-                          planes[dd] * ray[r][1], planes[dd] * ray[r][2], live[r], H, W, t);
+        tp[r] = fetch_row<BF>(src_b + size_t(vv) * N * C * esz, proj_b + vv * 12,
+                              planes[dd] * ray[r][0], planes[dd] * ray[r][1],
+                              planes[dd] * ray[r][2], live[r], H, W, t);
     };
     fetch(d0, 0);
 
@@ -438,14 +522,17 @@ __global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
              sl[4] = {0, 0, 0, 0};
     for (int d = d0; d < d1; ++d) {
       const float plane = planes[d];
+      // the plane channel's product: bf16 operands in the bf16 mode
+      const float plane_a = BF ? bf16r(plane) : plane;
 #pragma unroll
       for (int j = 0; j < NT16; ++j) {
-        const float2 wp = *reinterpret_cast<const float2*>(vec_s + V_WP + 8 * j + 2 * t);
+        float2 wp = *reinterpret_cast<const float2*>(vec_s + V_WP + 8 * j + 2 * t);
+        if constexpr (BF) { wp.x = bf16r(wp.x); wp.y = bf16r(wp.y); }
         const float4 uj = u_s[j * 32 + lane];
-        acc[j][0] = uj.x + plane * wp.x;
-        acc[j][1] = uj.y + plane * wp.y;
-        acc[j][2] = uj.z + plane * wp.x;
-        acc[j][3] = uj.w + plane * wp.y;
+        acc[j][0] = uj.x + plane_a * wp.x;
+        acc[j][1] = uj.y + plane_a * wp.y;
+        acc[j][2] = uj.z + plane_a * wp.x;
+        acc[j][3] = uj.w + plane_a * wp.y;
       }
       // layer 1, per-plane rows: view v's features are K step v; the
       // scalars of views 2p and 2p+1 share step K + p. Each view's taps are
@@ -456,8 +543,8 @@ __global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
         ViewOut o[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          o[r] = finish_row(tp[r], ctr_b + v * 3, plane * ray[r][0], plane * ray[r][1],
-                            plane * ray[r][2], cr[r], cf[r], t);
+          o[r] = finish_row<BF>(tp[r], ctr_b + v * 3, plane * ray[r][0], plane * ray[r][1],
+                                plane * ray[r][2], cr[r], cf[r], t);
         if (v + 1 < K) {
           fetch(d, v + 1);
         } else if (d + 1 < d1) {
@@ -473,15 +560,18 @@ __global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
         wg_wait();
         pin(acc);
         pin(fh); pin(fl); pin(sh); pin(sl);
-        split_a(o[0].f, o[1].f, fh, fl);
         const bool pair = (v & 1) || v == K - 1;
-        if (pair) {
-          split_a(s0, s1, sh, sl);
-          s0[2] = s0[3] = s1[2] = s1[3] = 0.f;
+        if constexpr (BF) {
+          round_a(o[0].f, o[1].f, fh);
+          if (pair) round_a(s0, s1, sh);
+        } else {
+          split_a(o[0].f, o[1].f, fh, fl);
+          if (pair) split_a(s0, s1, sh, sl);
         }
+        if (pair) s0[2] = s0[3] = s1[2] = s1[3] = 0.f;
         wg_fence();
-        wgmma3(acc, fh, fl, w1p_a + v * 2 * TILE_BYTES);
-        if (pair) wgmma3(acc, sh, sl, w1p_a + (K + v / 2) * 2 * TILE_BYTES);
+        wgmma_step<BF>(acc, fh, fl, w1p_a + v * 2 * TILE_BYTES);
+        if (pair) wgmma_step<BF>(acc, sh, sl, w1p_a + (K + v / 2) * 2 * TILE_BYTES);
         wg_commit();
         pin(acc);
       }
@@ -489,15 +579,24 @@ __global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
       pin(acc);
       pin(fh); pin(fl); pin(sh); pin(sl);
 
-      // H1 = leaky(acc) as layer 2's A fragments (hi, lo), K step s =
-      // hidden units 16s..16s+15 = column groups 2s and 2s+1
-      uint32_t hh[HID / 16][4], hl[HID / 16][4];
+      // H1 = leaky(acc) as layer 2's A fragments (hi, lo; the bf16 mode
+      // rounds to hi only), K step s = hidden units 16s..16s+15 = column
+      // groups 2s and 2s+1
+      uint32_t hh[HID / 16][4], hl[BF ? 1 : HID / 16][4];
 #pragma unroll
       for (int s = 0; s < HID / 16; ++s) {
-        split2(leaky(acc[2 * s][0]), leaky(acc[2 * s][1]), hh[s][0], hl[s][0]);
-        split2(leaky(acc[2 * s][2]), leaky(acc[2 * s][3]), hh[s][1], hl[s][1]);
-        split2(leaky(acc[2 * s + 1][0]), leaky(acc[2 * s + 1][1]), hh[s][2], hl[s][2]);
-        split2(leaky(acc[2 * s + 1][2]), leaky(acc[2 * s + 1][3]), hh[s][3], hl[s][3]);
+        if constexpr (BF) {
+          const float r0[4] = {leaky(acc[2 * s][0]), leaky(acc[2 * s][1]),
+                               leaky(acc[2 * s + 1][0]), leaky(acc[2 * s + 1][1])};
+          const float r1[4] = {leaky(acc[2 * s][2]), leaky(acc[2 * s][3]),
+                               leaky(acc[2 * s + 1][2]), leaky(acc[2 * s + 1][3])};
+          round_a(r0, r1, hh[s]);
+        } else {
+          split2(leaky(acc[2 * s][0]), leaky(acc[2 * s][1]), hh[s][0], hl[s][0]);
+          split2(leaky(acc[2 * s][2]), leaky(acc[2 * s][3]), hh[s][1], hl[s][1]);
+          split2(leaky(acc[2 * s + 1][0]), leaky(acc[2 * s + 1][1]), hh[s][2], hl[s][2]);
+          split2(leaky(acc[2 * s + 1][2]), leaky(acc[2 * s + 1][3]), hh[s][3], hl[s][3]);
+        }
       }
       // layer 2 in two halves of 64 units (half the accumulators):
       // score += leaky(b2 + H1 . W2) . w3
@@ -515,18 +614,26 @@ __global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
         wg_fence();
 #pragma unroll
         for (int s = 0; s < HID / 16; ++s)
-          wgmma3(a2, hh[s], hl[s], w2_a + s * 2 * TILE_BYTES + nh2 * (NT16 / 2) * SBO);
+          wgmma_step<BF>(a2, hh[s], hl[BF ? 0 : s], w2_a + s * 2 * TILE_BYTES + nh2 * (NT16 / 2) * SBO);
         wg_commit();
         wg_wait();
         pin(a2);
 #pragma unroll
-        for (int s = 0; s < HID / 16; ++s) { pin(hh[s]); pin(hl[s]); }
+        for (int s = 0; s < HID / 16; ++s) {
+          pin(hh[s]);
+          if constexpr (!BF) pin(hl[s]);
+        }
 #pragma unroll
         for (int j = 0; j < NT16 / 2; ++j) {
-          const float2 ww =
-              *reinterpret_cast<const float2*>(vec_s + V_W3 + 64 * nh2 + 8 * j + 2 * t);
-          part0 += leaky(a2[j][0]) * ww.x + leaky(a2[j][1]) * ww.y;
-          part1 += leaky(a2[j][2]) * ww.x + leaky(a2[j][3]) * ww.y;
+          float2 ww = *reinterpret_cast<const float2*>(vec_s + V_W3 + 64 * nh2 + 8 * j + 2 * t);
+          if constexpr (BF) {   // the last product's operands in bf16, too
+            ww.x = bf16r(ww.x); ww.y = bf16r(ww.y);
+            part0 += bf16r(leaky(a2[j][0])) * ww.x + bf16r(leaky(a2[j][1])) * ww.y;
+            part1 += bf16r(leaky(a2[j][2])) * ww.x + bf16r(leaky(a2[j][3])) * ww.y;
+          } else {
+            part0 += leaky(a2[j][0]) * ww.x + leaky(a2[j][1]) * ww.y;
+            part1 += leaky(a2[j][2]) * ww.x + leaky(a2[j][3]) * ww.y;
+          }
         }
       }
       part0 += __shfl_xor_sync(0xffffffffu, part0, 1);
@@ -561,20 +668,20 @@ __global__ void __launch_bounds__(NT, 1) fused_volume_kernel(
   }
 }
 
-// one instantiation per view count: the view loop is unrolled, so the
-// scalar pairing and the offsets are fixed at compile time
-template <int K>
-int launch(const void* cur, const void* src, const void* rays, const void* proj,
-           const void* centers, const void* pose, const void* planes, const void* hint,
-           const void* w1i, const void* w1p, const void* w2, const void* vec,
-           const HintWeights& hw, void* out, int B, int H, int W, int D, int run, int blocks,
-           int use_hint, void* stream) {
+// one instantiation per view count and mode: the view loop is unrolled, so
+// the scalar pairing and the offsets are fixed at compile time
+template <int K, bool BF>
+int launch_mode(const void* cur, const void* src, const void* rays, const void* proj,
+                const void* centers, const void* pose, const void* planes, const void* hint,
+                const void* w1i, const void* w1p, const void* w2, const void* vec,
+                const HintWeights& hw, void* out, int B, int H, int W, int D, int run,
+                int blocks, int use_hint, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_volume_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_bytes(K)));
+      fused_volume_kernel<K, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem_bytes(K)));
   if (err != cudaSuccess) return int(err);
-  fused_volume_kernel<K><<<blocks, NT, smem_bytes(K), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cur), static_cast<const float*>(src),
-      static_cast<const float*>(rays), static_cast<const float*>(proj),
+  fused_volume_kernel<K, BF><<<blocks, NT, smem_bytes(K), static_cast<cudaStream_t>(stream)>>>(
+      cur, src, static_cast<const float*>(rays), static_cast<const float*>(proj),
       static_cast<const float*>(centers), static_cast<const float*>(pose),
       static_cast<const float*>(planes), static_cast<const float*>(hint),
       static_cast<const uint4*>(w1i), static_cast<const uint4*>(w1p),
@@ -583,34 +690,45 @@ int launch(const void* cur, const void* src, const void* rays, const void* proj,
   return int(cudaGetLastError());
 }
 
+// the mode, then the view count
+template <int K>
+int launch(const void* cur, const void* src, const void* rays, const void* proj,
+           const void* centers, const void* pose, const void* planes, const void* hint,
+           const void* w1i, const void* w1p, const void* w2, const void* vec,
+           const HintWeights& hw, void* out, int B, int H, int W, int D, int run, int blocks,
+           int use_hint, int bf16, void* stream) {
+  if (bf16)
+    return launch_mode<K, true>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2,
+                                vec, hw, out, B, H, W, D, run, blocks, use_hint, stream);
+  return launch_mode<K, false>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2,
+                               vec, hw, out, B, H, W, D, run, blocks, use_hint, stream);
+}
+
 }  // namespace
 
+// cur and src are bf16 when bf16 != 0 (the bf16 mode), fp32 otherwise
 extern "C" int fused_volume_launch(
     const void* cur, const void* src, const void* rays, const void* proj,
     const void* centers, const void* pose, const void* planes, const void* hint,
     const void* w1i, const void* w1p, const void* w2, const void* vec, const float* hint_w,
-    void* out, int B, int K, int H, int W, int D, int run, int blocks, int use_hint,
+    void* out, int B, int K, int H, int W, int D, int run, int blocks, int use_hint, int bf16,
     void* stream) {
   if (K < 1 || K > KMAX || run < 1 || blocks < 1) return int(cudaErrorInvalidValue);
   HintWeights hw;   // host memory, copied into the launch's parameters
   memset(&hw, 0, sizeof(hw));
   if (use_hint) memcpy(&hw, hint_w, sizeof(hw));
+#define DT_LAUNCH(KK)                                                                       \
+  launch<KK>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec, hw, out, B, \
+             H, W, D, run, blocks, use_hint, bf16, stream)
   switch (K) {
-    case 1: return launch<1>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
-                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
-    case 2: return launch<2>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
-                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
-    case 3: return launch<3>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
-                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
-    case 4: return launch<4>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
-                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
-    case 5: return launch<5>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
-                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
-    case 6: return launch<6>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
-                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
-    case 7: return launch<7>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2, vec,
-                             hw, out, B, H, W, D, run, blocks, use_hint, stream);
-    default: return launch<8>(cur, src, rays, proj, centers, pose, planes, hint, w1i, w1p, w2,
-                              vec, hw, out, B, H, W, D, run, blocks, use_hint, stream);
+    case 1: return DT_LAUNCH(1);
+    case 2: return DT_LAUNCH(2);
+    case 3: return DT_LAUNCH(3);
+    case 4: return DT_LAUNCH(4);
+    case 5: return DT_LAUNCH(5);
+    case 6: return DT_LAUNCH(6);
+    case 7: return DT_LAUNCH(7);
+    default: return DT_LAUNCH(8);
   }
+#undef DT_LAUNCH
 }

@@ -19,7 +19,18 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
-from doubletake_tpu_torch.models.layers import BlurPool, Conv2dSame, conv, instance_norm
+from doubletake_tpu_torch.models.layers import (
+    BatchNorm2d,
+    BlurPool,
+    Conv2d,
+    Conv2dSame,
+    InstanceNorm2d,
+    LeakyReLU,
+    conv,
+    instance_norm,
+    leaky_relu,
+    silu,
+)
 from doubletake_tpu_torch.ops.resize import to_nchw, to_nhwc
 
 
@@ -28,10 +39,10 @@ class BNBasicBlock(nn.Module):
 
     def __init__(self, planes: int = 64):
         super().__init__()
-        self.conv1 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv1 = Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -47,16 +58,16 @@ class ResnetMatchingEncoder(nn.Module):
     def __init__(self, num_ch_out: int = 16):
         super().__init__()
         self.net = nn.Sequential(
-            nn.Conv2d(3, 64, 7, 2, 3, bias=False),                   # 0
-            nn.BatchNorm2d(64),                                       # 1
+            Conv2d(3, 64, 7, 2, 3, bias=False),                   # 0
+            BatchNorm2d(64),                                       # 1
             nn.ReLU(),                                                # 2
             nn.Sequential(nn.MaxPool2d(2, 1), BlurPool(64)),          # 3
             nn.Sequential(BNBasicBlock(), BNBasicBlock()),            # 4
-            nn.Conv2d(64, 128, 1),                                    # 5
-            nn.InstanceNorm2d(128),                                   # 6
-            nn.LeakyReLU(0.2),                                        # 7
-            nn.Conv2d(128, num_ch_out, 3, padding=1, padding_mode="replicate"),  # 8
-            nn.InstanceNorm2d(num_ch_out),                            # 9
+            Conv2d(64, 128, 1),                                    # 5
+            InstanceNorm2d(),                                         # 6
+            LeakyReLU(0.2),                                           # 7
+            Conv2d(128, num_ch_out, 3, padding=1, padding_mode="replicate"),  # 8
+            InstanceNorm2d(),                                         # 9
         )
 
     def forward(self, x_nhwc):
@@ -64,7 +75,7 @@ class ResnetMatchingEncoder(nn.Module):
 
 
 def _bn(c, eps):
-    return nn.BatchNorm2d(c, eps=eps)
+    return BatchNorm2d(c, eps=eps)
 
 
 class SqueezeExcite(nn.Module):
@@ -72,12 +83,12 @@ class SqueezeExcite(nn.Module):
 
     def __init__(self, chs: int, rd: int):
         super().__init__()
-        self.conv_reduce = nn.Conv2d(chs, rd, 1)
-        self.conv_expand = nn.Conv2d(rd, chs, 1)
+        self.conv_reduce = Conv2d(chs, rd, 1)
+        self.conv_expand = Conv2d(rd, chs, 1)
 
     def forward(self, x):
         s = x.mean((2, 3), keepdim=True)
-        s = F.silu(self.conv_reduce(s))
+        s = silu(self.conv_reduce(s))
         return x * self.conv_expand(s).sigmoid()
 
 
@@ -91,7 +102,7 @@ class ConvBnAct(nn.Module):
         self.has_skip = stride == 1 and cin == cout
 
     def forward(self, x):
-        y = F.silu(self.bn1(self.conv(x)))
+        y = silu(self.bn1(self.conv(x)))
         return y + x if self.has_skip else y
 
 
@@ -108,7 +119,7 @@ class EdgeResidual(nn.Module):
         self.has_skip = stride == 1 and cin == cout
 
     def forward(self, x):
-        y = F.silu(self.bn1(self.conv_exp(x)))
+        y = silu(self.bn1(self.conv_exp(x)))
         y = self.bn2(self.conv_pwl(y))
         return y + x if self.has_skip else y
 
@@ -130,8 +141,8 @@ class InvertedResidual(nn.Module):
         self.has_skip = stride == 1 and cin == cout
 
     def forward(self, x):
-        y = F.silu(self.bn1(self.conv_pw(x)))
-        y = F.silu(self.bn2(self.conv_dw(y)))
+        y = silu(self.bn1(self.conv_pw(x)))
+        y = silu(self.bn2(self.conv_dw(y)))
         y = self.se(y)
         y = self.bn3(self.conv_pwl(y))
         return y + x if self.has_skip else y
@@ -175,7 +186,7 @@ class EfficientNetV2S(nn.Module):
         self.blocks = nn.Sequential(*stages)
 
     def forward_nchw(self, x):
-        x = F.silu(self.bn1(self.conv_stem(x)))
+        x = silu(self.bn1(self.conv_stem(x)))
         feats = []
         for si, stage in enumerate(self.blocks):
             x = stage(x)
@@ -198,7 +209,7 @@ class TinyEncoder(nn.Module):
         cin = 3
         for si, ch in enumerate(self.feature_channels):
             setattr(self, f"conv{si}", conv(cin, ch, 3, 2, 1, bias=False))
-            setattr(self, f"bn{si}", nn.BatchNorm2d(ch))
+            setattr(self, f"bn{si}", BatchNorm2d(ch))
             cin = ch
 
     def forward_nchw(self, x):
@@ -221,7 +232,7 @@ class TinyMatchingEncoder(nn.Module):
         self.conv1 = conv(16, num_ch_out, 3, 2, 1)
 
     def forward(self, x_nhwc):
-        x = F.leaky_relu(self.conv0(to_nchw(x_nhwc)), 0.2)
+        x = leaky_relu(self.conv0(to_nchw(x_nhwc)), 0.2)
         return to_nhwc(instance_norm(self.conv1(x)))
 
 

@@ -11,7 +11,14 @@ Counterparts of ``doubletake_tpu.models.cost_volume``:
 Scores come from ``ops.fused_volume``: the CUDA kernel when the module is
 built with ``fast_cost_volume``, is in eval mode and gets CUDA tensors (the
 JAX package's Pallas gate, cost_volume.py:235-250); otherwise the plain
-chunked path, which is the JAX XLA path.
+chunked path, which is the JAX XLA path. Training always takes the plain
+path (the kernel has no backward, as the Pallas kernel has no VJP).
+
+The volume runs in the features' type. With bf16 features the kernel's
+bf16 mode gives float32 scores that are cast to bf16, as the JAX fast path
+casts them (cost_volume.py:388); the plain path's scores stay float32, as
+the XLA path's do (its metadata concatenates float32 depths, so its MLP
+computes in float32).
 
 Metadata channel order (the checkpoint MLP depends on it):
   [src_feats (k*c), cur_feats (c), mask (k), src depths (k), plane depth (1),
@@ -74,27 +81,30 @@ class FeatureVolume(nn.Module):
         "sampled_weights_bhw1". Returns (volume_bhwd, lowest_cost_bhw,
         planes_d, overall_mask_bhw)."""
         b, h, w, _ = cur_feats_bhwc.shape
-        dev = cur_feats_bhwc.device
+        dev, dtype = cur_feats_bhwc.device, cur_feats_bhwc.dtype
         planes_d = generate_depth_planes(min_depth, max_depth, self.num_depth_bins, dev)
         P_bk34, rays_b3n, centers_bk3, pose_meta_b3k = volume_geometry(
-            src_K_bk44, src_cam_T_cur_cam_bk44, cur_cam_T_src_cam_bk44, cur_invK_b44, h, w)
+            src_K_bk44, src_cam_T_cur_cam_bk44, cur_cam_T_src_cam_bk44, cur_invK_b44, h, w,
+            dtype)
 
         hint_bhw3 = None
         if self.hint_mlp is not None:
             depth = interpolate_nearest(hint["depth_hint_bhw1"], (h, w))[..., 0]
             valid = interpolate_nearest(hint["hint_mask_bhw1"].float(), (h, w))[..., 0] != 0
             wts = interpolate_nearest(hint["sampled_weights_bhw1"], (h, w))[..., 0]
-            wts = torch.where(valid, wts, torch.zeros_like(wts))
+            wts = torch.where(valid, wts, torch.zeros_like(wts)).to(dtype)
             # invalid hint depths are NaN: the plain path selects -1 for them
             # (as the XLA path does) and the kernel's wrapper zeroes them
             hint_bhw3 = torch.stack([depth.float(), valid.float(), wts.float()], -1)
 
-        volume = fused_feature_volume if (self.fast_cost_volume and not self.training) \
-            else feature_volume_plain
+        fast = self.fast_cost_volume and not self.training
+        volume = fused_feature_volume if fast else feature_volume_plain
         volume_bdhw = volume(
             cur_feats_bhwc.contiguous(), src_feats_bkhwc.contiguous(), P_bk34, rays_b3n,
             centers_bk3, pose_meta_b3k, planes_d, self._layers(self.mlp),
             self._layers(self.hint_mlp), hint_bhw3, plane_chunk=self.plane_chunk)
+        if fast:
+            volume_bdhw = volume_bdhw.to(dtype)
 
         volume_bhwd = volume_bdhw.permute(0, 2, 3, 1)
         lowest_cost_bhw = planes_d[volume_bdhw.argmax(1)]

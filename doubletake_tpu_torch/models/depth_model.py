@@ -7,7 +7,15 @@ interface, as in ``doubletake_tpu.models.depth_model``).
     mesh-hint volume and a hint dict input (reference:
     src/doubletake/experiment_modules/doubletake_model.py:265-425).
 
-Inference only so far: no flip augmentation, no ``stop_after``, float32.
+Inference and training, in float32 or bf16 (``compute_dtype``: images are
+cast to it at entry, weights are cast by ``runners.common`` or the train
+step, outputs are float32). Train mode is the module's (``model.train()``):
+batch norm then normalises with the batch's statistics, and the feature
+volume takes its plain path. The horizontal-flip augmentation is a Python
+bool ``flip``: images are flipped for the encoders, the matching features
+flipped back for the plane sweep, the volume flipped again to align with
+the flipped image features, and the outputs flipped back
+(sr_depth_model.py:275-435 ordering).
 """
 
 from __future__ import annotations
@@ -34,8 +42,9 @@ class DepthModel(nn.Module):
                  max_matching_depth: float = 5.0, plane_chunk: int = 16,
                  fast_cost_volume: bool = False, compute_dtype: str = "float32"):
         super().__init__()
-        if compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {compute_dtype!r} is not ported yet")
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {compute_dtype!r} is not ported")
+        self.compute_dtype = getattr(torch, compute_dtype)
         self.matching_scale = matching_scale
         self.min_matching_depth = min_matching_depth
         self.max_matching_depth = max_matching_depth
@@ -63,20 +72,38 @@ class DepthModel(nn.Module):
         poses, source views or the hint, so sequential runners may run them
         ahead and feed them back through ``forward(cur_feats=...,
         cur_matching_feats=...)``."""
-        return tuple(self.encoder(image_bhw3)), self.matching_model(image_bhw3)
+        img = image_bhw3.to(self.compute_dtype)
+        return tuple(self.encoder(img)), self.matching_model(img)
 
     def forward(self, cur_data: Dict[str, Any], src_data: Dict[str, Any],
                 return_mask: bool = False, hint: Optional[Dict[str, Any]] = None,
-                src_matching_feats=None, cur_feats=None, cur_matching_feats=None):
+                src_matching_feats=None, cur_feats=None, cur_matching_feats=None,
+                flip: bool = False, stop_after: Optional[str] = None):
         """cur_data: "image_bhw3", "cam_T_world_b44", "world_T_cam_b44",
         f"invK_s{matching_scale}_b44". src_data: "image_bkhw3",
         "cam_T_world_bk44", "world_T_cam_bk44", f"K_s{matching_scale}_bk44".
         src_matching_feats: optional (B, k, H/4, W/4, C) features of the src
         views in src_data's order (the sequential runners' feature cache).
         cur_feats / cur_matching_feats: optional ``encode_frame`` outputs.
+        Both feature inputs are for unflipped inference passes only.
+        flip: the horizontal-flip augmentation (module doc).
+        stop_after: a profiling diagnostic: "cost_volume" returns right
+        after the volume, "cv_encoder" after the CVEncoder.
         """
+        dtype = self.compute_dtype
         cur_image = cur_data.get("image_bhw3")
         src_image = src_data.get("image_bkhw3")
+        if cur_image is None:
+            assert cur_feats is not None and cur_matching_feats is not None, (
+                "cur_data lacks image_bhw3: cur_feats and cur_matching_feats must be "
+                "precomputed (encode_frame)")
+        else:
+            cur_image = cur_image.to(dtype)
+        if src_image is None:
+            assert src_matching_feats is not None, (
+                "src_data lacks image_bkhw3: src_matching_feats must be precomputed")
+        else:
+            src_image = src_image.to(dtype)
         src_K = src_data[f"K_s{self.matching_scale}_bk44"]
         cur_invK = cur_data[f"invK_s{self.matching_scale}_b44"]
         src_cam_T_cur_cam = torch.einsum(
@@ -84,7 +111,17 @@ class DepthModel(nn.Module):
         cur_cam_T_src_cam = torch.einsum(
             "bij,bkjl->bkil", cur_data["cam_T_world_b44"], src_data["world_T_cam_bk44"])
 
-        if cur_feats is None:
+        def flipped(x, dim):
+            return x.flip(dim) if flip else x
+
+        if cur_image is not None:
+            cur_image = flipped(cur_image, 2)
+        if src_image is not None:
+            src_image = flipped(src_image, 3)
+        if cur_feats is not None:
+            assert not flip, "cur_feats is an inference input; flipped passes encode images"
+            cur_feats = tuple(f.to(dtype) for f in cur_feats)
+        else:
             cur_feats = self.encoder(cur_image)
         b, k = src_data["world_T_cam_bk44"].shape[:2]
         if src_matching_feats is None and cur_matching_feats is None:
@@ -93,34 +130,48 @@ class DepthModel(nn.Module):
             all_feats = all_feats.reshape((b, k + 1) + all_feats.shape[1:])
             matching_cur_feats, matching_src_feats = all_feats[:, 0], all_feats[:, 1:]
         else:
-            matching_cur_feats = (cur_matching_feats if cur_matching_feats is not None
+            assert not flip, ("src/cur matching feats are inference feature-cache inputs; "
+                              "flipped passes encode images")
+            matching_cur_feats = (cur_matching_feats.to(dtype) if cur_matching_feats is not None
                                   else self.matching_model(cur_image))
             if src_matching_feats is not None:
-                matching_src_feats = src_matching_feats
+                matching_src_feats = src_matching_feats.to(dtype)
             else:
                 f = self.matching_model(src_image.reshape((b * k,) + src_image.shape[2:]))
                 matching_src_feats = f.reshape((b, k) + f.shape[1:])
+        # the plane sweep needs the views as the cameras saw them
+        matching_cur_feats = flipped(matching_cur_feats, 2)
+        matching_src_feats = flipped(matching_src_feats, 3)
 
         cost_volume_bhwd, lowest_cost_bhw, _, overall_mask_bhw = self.cost_volume(
             matching_cur_feats, matching_src_feats, src_cam_T_cur_cam, cur_cam_T_src_cam,
             src_K, cur_invK, self.min_matching_depth, self.max_matching_depth,
             hint=hint, return_mask=return_mask,
         )
+        cost_volume_bhwd = flipped(cost_volume_bhwd, 2)
+        if stop_after == "cost_volume":
+            return {"cost_volume_bhwd": cost_volume_bhwd,
+                    "matching_feats_bhwc": matching_cur_feats}
 
         # the decoder stack runs NCHW: the volume's (B, H, W, D) view is the
         # kernel's (B, D, H, W) buffer, so this permute is free
         cv_feats = self.cost_volume_net.forward_nchw(
             cost_volume_bhwd.permute(0, 3, 1, 2),
             [f.permute(0, 3, 1, 2) for f in cur_feats[self.matching_scale:]])
+        if stop_after == "cv_encoder":
+            return {"cv_feats": [f.permute(0, 2, 3, 1) for f in cv_feats],
+                    "matching_feats_bhwc": matching_cur_feats}
         decoder_inputs = [f.permute(0, 3, 1, 2) for f in cur_feats[:self.matching_scale]] + cv_feats
         outputs = {}
         for key, log_depth in self.depth_decoder.forward_nchw(decoder_inputs).items():
-            log_depth = log_depth.permute(0, 2, 3, 1).float()
+            log_depth = flipped(log_depth.permute(0, 2, 3, 1).float(), 2)
             outputs[key] = log_depth
             outputs[key.replace("log_", "")] = torch.exp(log_depth)
         outputs["lowest_cost_bhw"] = lowest_cost_bhw
         outputs["overall_mask_bhw"] = overall_mask_bhw
-        outputs["matching_feats_bhwc"] = matching_cur_feats
+        # features of a mirrored image never enter the runners' feature cache
+        if not flip:
+            outputs["matching_feats_bhwc"] = matching_cur_feats
         return outputs
 
 
@@ -132,7 +183,8 @@ class DepthModelCVHint(DepthModel):
         super().__init__(**kwargs)
 
     def forward(self, cur_data, src_data, return_mask=False, hint=None,
-                src_matching_feats=None, cur_feats=None, cur_matching_feats=None):
+                src_matching_feats=None, cur_feats=None, cur_matching_feats=None,
+                flip=False, stop_after=None):
         if hint is None:
             # empty hint: invalid everywhere (the reference feeds all-invalid
             # hint tensors before a mesh exists). Without images it is built
@@ -148,7 +200,8 @@ class DepthModelCVHint(DepthModel):
                     "sampled_weights_bhw1": zero}
         return super().forward(cur_data, src_data, return_mask=return_mask, hint=hint,
                                src_matching_feats=src_matching_feats, cur_feats=cur_feats,
-                               cur_matching_feats=cur_matching_feats)
+                               cur_matching_feats=cur_matching_feats, flip=flip,
+                               stop_after=stop_after)
 
 
 def get_model_class(model_type: str):

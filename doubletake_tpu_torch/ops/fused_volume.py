@@ -25,6 +25,12 @@ channel's row is added as ``plane * w``. ``pack_volume_weights`` builds
 that layout once, with each matrix split into bf16 hi + lo parts in the
 order the tensor-core fragments read them; ``packed_volume_weights`` caches
 it per weight tensor and rebuilds it when a weight changes.
+
+The features' type picks the kernel's mode: float32 features take three
+bf16 products per product (hi/lo), bf16 features (the bf16 compute dtype)
+one product on the hi parts, as the TPU kernel computes. Both write float32
+scores. The plain version follows the JAX XLA path's types at either
+(``volume_metadata``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import weakref
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from doubletake_tpu_torch.ops.build import load_kernel
 from doubletake_tpu_torch.ops.grid_sample import grid_sample_2d
@@ -69,11 +76,13 @@ def mlp_in_channels(num_views: int, channels: int) -> int:
 
 
 def volume_geometry(src_K_bk44, src_cam_T_cur_cam_bk44, cur_cam_T_src_cam_bk44,
-                    cur_invK_b44, h: int, w: int):
-    """(P_bk34, rays_b3n, centers_bk3, pose_meta_b3k) for a matching grid h x w."""
+                    cur_invK_b44, h: int, w: int, dtype=torch.float32):
+    """(P_bk34, rays_b3n, centers_bk3, pose_meta_b3k) for a matching grid h x w,
+    all float32. ``dtype``, the features' type, is that of the pixel grid
+    the rays start from, as in the JAX package (exact up to 256 columns)."""
     b, k = src_K_bk44.shape[:2]
     P_bk34 = torch.matmul(src_K_bk44, src_cam_T_cur_cam_bk44)[:, :, :3, :].contiguous()
-    pix = pixel_grid_homogeneous(h, w, torch.float32, src_K_bk44.device)
+    pix = pixel_grid_homogeneous(h, w, dtype, src_K_bk44.device).float()
     rays_b3n = torch.einsum("bij,jn->bin", cur_invK_b44[:, :3, :3], pix).contiguous()
     # the reference passes cur_cam_T_src_cam as the source poses
     pd, rm, tm = pose_distance(cur_cam_T_src_cam_bk44.reshape(b * k, 4, 4))
@@ -83,8 +92,12 @@ def volume_geometry(src_K_bk44, src_cam_T_cur_cam_bk44, cur_cam_T_src_cam_bk44,
 
 
 def _mlp(layers, x):
+    """The MLP on ``x``, each layer in the promoted type of its input and
+    weights (flax's ``Dense``: bf16 weights on a float32 input compute in
+    float32)."""
     for i, (wgt, bias) in enumerate(layers):
-        x = F.linear(x, wgt, bias)
+        dt = torch.promote_types(x.dtype, wgt.dtype)
+        x = F.linear(x.to(dt), wgt.to(dt), bias.to(dt))
         if i < len(layers) - 1:
             x = F.leaky_relu(x, 0.01)
     return x
@@ -93,7 +106,13 @@ def _mlp(layers, x):
 def volume_metadata(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, centers_bk3,
                     pose_meta_b3k, planes_c):
     """(B, Dc, N, nin) metadata vectors of the planes ``planes_c``, in the
-    checkpoint's channel order (``models/cost_volume.py`` module doc)."""
+    checkpoint's channel order (``models/cost_volume.py`` module doc).
+
+    In the features' type, as the JAX package's XLA path computes it: the
+    sampling grid, the warp, the dot, the plane depth, the angles, the rays,
+    the pose metadata and the source centres are rounded to it; the
+    projected depths stay float32, so the vector is float32 (bf16 values
+    but for the depths) when the features are bf16."""
     b, h, w, c = cur_feats_bhwc.shape
     k = src_feats_bkhwc.shape[1]
     n = h * w
@@ -111,11 +130,12 @@ def volume_metadata(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, centers_b
     grid = torch.stack([gx, gy], -1).reshape(b * k, dc * h, w, 2)
     warped = grid_sample_2d(src_flat, grid).reshape(b, k, dc, n, c)
     mask = (z > 0).to(dtype)                                            # (B, k, Dc, N)
-    dot = (warped * cur_n[:, None, None]).sum(-1) * mask
+    dot = (warped.float() * cur_n[:, None, None].float()).sum(-1).to(dtype) * mask
 
+    centers = centers_bk3.to(dtype).float()
     cur_rays = normalize_vectors(pts, 2)                                # (B, Dc, 3, N)
-    src_rays = normalize_vectors(pts[:, None] - centers_bk3[:, :, None, :, None], 3)
-    angle = (cur_rays[:, None] * src_rays).sum(3)                      # (B, k, Dc, N)
+    src_rays = normalize_vectors(pts[:, None] - centers[:, :, None, :, None], 3)
+    angle = (cur_rays[:, None] * src_rays).sum(3).to(dtype)            # (B, k, Dc, N)
 
     def per_view(x):  # (B, k, Dc, N) -> (B, Dc, N, k)
         return x.permute(0, 2, 3, 1)
@@ -129,7 +149,7 @@ def volume_metadata(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, centers_b
         planes_c[None, :, None, None].expand(b, dc, n, 1).to(dtype),
         per_view(dot),
         per_view(angle),
-        rays_all.permute(0, 2, 4, 1, 3).reshape(b, dc, n, (1 + k) * 3),
+        rays_all.permute(0, 2, 4, 1, 3).reshape(b, dc, n, (1 + k) * 3).to(dtype),
         pose_meta_b3k[:, None, None].expand(b, dc, n, 3 * k).to(dtype),
     ], -1)
 
@@ -139,31 +159,47 @@ def feature_volume_plain(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, cent
                          plane_chunk: int = 16):
     """(B, D, h, w) scores. ``mlp``/``hint_mlp``: [(weight, bias)] per Linear,
     torch layout; ``hint_bhw3``: [depth, valid 0/1, weight], the depth finite
-    where valid (elsewhere it is never used)."""
+    where valid (elsewhere it is never used). float32 for float32 and bf16
+    features (``volume_metadata``).
+
+    Under autograd each chunk of planes is checkpointed: its metadata and
+    MLP activations (~10 GB a chunk at b=16) are recomputed in the backward
+    instead of kept, as XLA rematerialises them in the JAX train step."""
     b, h, w, _ = cur_feats_bhwc.shape
+    dtype = cur_feats_bhwc.dtype
     n = h * w
     if hint_mlp is not None:
         hd, hv, hw = hint_bhw3.reshape(b, n, 3).unbind(-1)
         hvalid = hv > 0.5
 
-    chunks = []
-    for s in range(0, planes_d.shape[0], plane_chunk):
-        planes_c = planes_d[s:s + plane_chunk]
+    def chunk(planes_c):
         x = volume_metadata(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, centers_bk3,
                             pose_meta_b3k, planes_c)
         score = _mlp(mlp, x)[..., 0]                                        # (B, Dc, N)
         if hint_mlp is not None:
-            score = hint_mlp_plain(hint_mlp, score, hd, hvalid, hw, planes_c)
-        chunks.append(score)
+            score = hint_mlp_plain(hint_mlp, score, hd, hvalid, hw, planes_c, dtype)
+        return score
+
+    chunks = []
+    for s in range(0, planes_d.shape[0], plane_chunk):
+        planes_c = planes_d[s:s + plane_chunk]
+        if torch.is_grad_enabled():
+            chunks.append(checkpoint(chunk, planes_c, use_reentrant=False))
+        else:
+            chunks.append(chunk(planes_c))
     return torch.cat(chunks, 1).reshape(b, -1, h, w)
 
 
-def hint_mlp_plain(hint_mlp, score_bdn, hd_bn, hvalid_bn, hw_bn, planes_c):
-    """The hint MLP on [score, |hint - plane| or -1, weight or 0]."""
+def hint_mlp_plain(hint_mlp, score_bdn, hd_bn, hvalid_bn, hw_bn, planes_c,
+                   dtype=torch.float32):
+    """The hint MLP on [score, |hint - plane| or -1, weight or 0], the last
+    two rounded to ``dtype`` (the features' type) as in the JAX package."""
     b, dc, n = score_bdn.shape
-    diff = torch.where(hvalid_bn[:, None], (hd_bn[:, None] - planes_c[None, :, None]).abs(),
-                       torch.full((), -1.0, dtype=score_bdn.dtype, device=hd_bn.device))
-    wts = torch.where(hvalid_bn, hw_bn, torch.zeros_like(hw_bn))[:, None].expand(b, dc, n)
+    diff = torch.where(hvalid_bn[:, None],
+                       (hd_bn[:, None] - planes_c[None, :, None]).abs().to(dtype).float(),
+                       torch.full((), -1.0, dtype=torch.float32, device=hd_bn.device))
+    wts = torch.where(hvalid_bn, hw_bn, torch.zeros_like(hw_bn)).to(dtype).float()
+    wts = wts[:, None].expand(b, dc, n)
     return _mlp(hint_mlp, torch.stack([score_bdn, diff, wts], -1))[..., 0]
 
 
@@ -335,18 +371,22 @@ def _ptr(t):
 def fused_feature_volume(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, centers_bk3,
                          pose_meta_b3k, planes_d, mlp, hint_mlp=None, hint_bhw3=None,
                          plane_chunk: int = 16):
-    """(B, D, h, w) scores through the kernel (CUDA) or the plain version (CPU).
+    """(B, D, h, w) float32 scores through the kernel (CUDA) or the plain
+    version (CPU).
 
     Same arguments as ``feature_volume_plain``. A hint may be given with
     non-finite depths: they are zeroed first, on both paths. With a hint
-    MLP and no hint, the hint is all invalid.
+    MLP and no hint, the hint is all invalid. The features' type picks the
+    kernel's mode: float32 features take the float32 mode (three bf16
+    products per product), bf16 features the bf16 mode (one); any other
+    type raises. Everything else is float32.
     """
     b, h, w, c = cur_feats_bhwc.shape
     k = src_feats_bkhwc.shape[1]
     if hint_mlp is not None:
         if hint_bhw3 is None:
-            hint_bhw3 = cur_feats_bhwc.new_zeros((b, h, w, 3))
-        hint_bhw3 = torch.nan_to_num(hint_bhw3, nan=0.0, posinf=0.0, neginf=0.0)
+            hint_bhw3 = cur_feats_bhwc.new_zeros((b, h, w, 3), dtype=torch.float32)
+        hint_bhw3 = torch.nan_to_num(hint_bhw3.float(), nan=0.0, posinf=0.0, neginf=0.0)
     else:
         hint_bhw3 = None
     args = (cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, centers_bk3,
@@ -378,14 +418,19 @@ def fused_feature_volume(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, cent
         "hint": (hint_bhw3, (b, h, w, 3)),
     }
     dev = cur_feats_bhwc.device
+    feat_dtype = cur_feats_bhwc.dtype
+    if feat_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_feature_volume: features must be float32 or bfloat16, "
+                         f"got {feat_dtype}")
     for name, (t, shape) in expect.items():
         if t is None:
             continue
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_feature_volume: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"fused_feature_volume: {name} must be contiguous float32 on {dev}")
+        dtype = feat_dtype if name in ("cur_feats", "src_feats") else torch.float32
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"fused_feature_volume: {name} must be contiguous {dtype} on {dev}")
     packed = packed_volume_weights(mlp, hint_mlp, k, c)
     if packed["vec"].device != dev:
         raise ValueError(f"fused_feature_volume: the MLP weights must be on {dev}")
@@ -396,13 +441,14 @@ def fused_feature_volume(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, cent
     lib = load_kernel("fused_volume")
     fn = lib.fused_volume_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_ptr(cur_feats_bhwc), _ptr(src_feats_bkhwc), _ptr(rays_b3n), _ptr(P_bk34),
              _ptr(centers_bk3), _ptr(pose_meta_b3k), _ptr(planes_d), _ptr(hint_bhw3),
              _ptr(packed["w1_inv_frag"]), _ptr(packed["w1_plane_tiles"]),
              _ptr(packed["w2_tiles"]), _ptr(packed["vec"]), _ptr(packed["hint"]), _ptr(out),
-             b, k, h, w, d, run, blocks, int(hint_mlp is not None), ctypes.c_void_p(stream))
+             b, k, h, w, d, run, blocks, int(hint_mlp is not None),
+             int(feat_dtype == torch.bfloat16), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused volume kernel launch failed: cudaError {err}")
     fused_feature_volume.launches += 1

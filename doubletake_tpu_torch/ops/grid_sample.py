@@ -21,11 +21,17 @@ def grid_sample_2d(input_nhwc, grid_nhw2, mode: str = "bilinear",
     """
     if padding_mode != "zeros":
         raise NotImplementedError("only zeros padding is supported")
+    dtype = input_nhwc.dtype
+    # the grid in the input's type, as the JAX package casts it; a bf16
+    # input is then sampled in float32 and the result rounded to bf16: the
+    # JAX package maps coordinates to pixels in float32, where torch's bf16
+    # sampler would round them to bf16 (and its CPU version returns NaN for
+    # a channels-last bf16 input)
     out = F.grid_sample(
-        input_nhwc.permute(0, 3, 1, 2), grid_nhw2.to(input_nhwc.dtype),
+        input_nhwc.permute(0, 3, 1, 2).float(), grid_nhw2.to(dtype).float(),
         mode=mode, padding_mode="zeros", align_corners=align_corners,
     )
-    return out.permute(0, 2, 3, 1)
+    return out.permute(0, 2, 3, 1).to(dtype)
 
 
 def grid_sample_3d(volume_dhwc, points_n3, mode: str = "bilinear",

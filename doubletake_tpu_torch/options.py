@@ -201,10 +201,18 @@ class OptionsHandler:
 
     @staticmethod
     def save_options_as_yaml(path: str, opts: Options):
-        import yaml
-
+        """Write the options as YAML; where ``yaml`` is not installed, as
+        JSON (itself YAML)."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         payload = dataclasses.asdict(opts)
+        try:
+            import yaml
+        except ImportError:
+            import json
+
+            with open(path, "w") as f:
+                json.dump(payload, f, indent=1)
+            return
         with open(path, "w") as f:
             yaml.safe_dump(payload, f)
 

@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 import torch
 
 from doubletake_tpu_torch.checkpoints.convert import lazy_load_state_dict, load_weights
+from doubletake_tpu_torch.checkpoints.io import cast_floating
 from doubletake_tpu_torch.models.depth_model import get_model_class
 from doubletake_tpu_torch.models.layers import init_parameters
 from doubletake_tpu_torch.ops.resize import interpolate_nearest
@@ -84,11 +85,12 @@ def init_or_load_params(opts: Options, model: torch.nn.Module) -> torch.nn.Modul
     opts.lazy_load_weights_from_checkpoint, the checkpoint's entries whose
     names and shapes match are then copied over the initialisation and the
     rest keep it (the JAX package's ``lazy_load_params``; reference
-    model_utils.py:47-63)."""
+    model_utils.py:47-63). Under compute_dtype "bfloat16" the weights and
+    the batch-norm statistics are then cast to bf16 (``maybe_cast``)."""
     path = opts.load_weights_from_checkpoint
     if path and os.path.exists(path):
         model.load_state_dict(load_weights(path))
-        return model
+        return maybe_cast(opts, model)
     device = next(model.parameters()).device
     generator = torch.Generator().manual_seed(opts.random_seed)
     model.cpu()
@@ -97,6 +99,15 @@ def init_or_load_params(opts: Options, model: torch.nn.Module) -> torch.nn.Modul
     lazy_path = opts.lazy_load_weights_from_checkpoint
     if lazy_path and os.path.exists(lazy_path):
         lazy_load_state_dict(model, load_weights(lazy_path))
+    return maybe_cast(opts, model)
+
+
+def maybe_cast(opts: Options, model: torch.nn.Module) -> torch.nn.Module:
+    """bf16 compute: cast the parameters and the floating buffers (batch-norm
+    statistics included) so the layers compute in bf16 (the JAX package's
+    ``_maybe_cast``; the model casts the images at entry)."""
+    if opts.compute_dtype == "bfloat16":
+        return cast_floating(model, torch.bfloat16)
     return model
 
 

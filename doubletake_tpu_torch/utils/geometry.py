@@ -9,7 +9,9 @@ src/doubletake/utils/geometry_utils.py) — these decide checkpoint parity:
   * projection divides by (z + eps) with a |z| > eps guard
     (geometry_utils.py:86-91).
 
-The numpy rotations at the end (``rotx``/``roty``/``rotz``, ``qvec2rotmat``)
+The depth-map filters (``gaussian_blur``, ``spatial_gradient``,
+``normals_from_depth``) serve the training losses. The numpy rotations at
+the end (``rotx``/``roty``/``rotz``, ``qvec2rotmat``)
 serve the dataset readers' pose conventions on the host.
 """
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def pixel_grid_homogeneous(height: int, width: int, dtype=torch.float32, device=None):
@@ -96,6 +99,56 @@ def linspace01(num: int, device=None) -> torch.Tensor:
     ramp = torch.arange(num, dtype=torch.float32) * step
     ramp[-1] = 1.0
     return ramp.to(device)
+
+
+def gaussian_kernel_1d(kernel_size: int, sigma: float, dtype=torch.float32, device=None):
+    """kornia get_gaussian_kernel1d (normalised to sum 1), computed in
+    float64 and rounded to float32 as the JAX package does."""
+    x = np.arange(kernel_size, dtype=np.float64) - (kernel_size - 1) / 2.0
+    g = np.exp(-(x**2) / (2.0 * sigma**2))
+    k = torch.from_numpy((g / g.sum()).astype(np.float32))
+    return k.to(device=device, dtype=dtype)
+
+
+def _depthwise(x_nchw, kernel_2d):
+    """Cross-correlate every channel with one (kh, kw) kernel, no padding."""
+    c = x_nchw.shape[1]
+    k = kernel_2d.to(x_nchw.dtype)[None, None].repeat(c, 1, 1, 1)
+    return F.conv2d(x_nchw, k, groups=c)
+
+
+def gaussian_blur(x_nhwc, kernel_size: int = 5, sigma: float = 2.0):
+    """kornia gaussian_blur2d: separable blur with reflect padding, NHWC."""
+    k = gaussian_kernel_1d(kernel_size, sigma, device=x_nhwc.device)
+    pad = kernel_size // 2
+    x = F.pad(x_nhwc.permute(0, 3, 1, 2), (0, 0, pad, pad), mode="reflect")
+    x = _depthwise(x, k[:, None])
+    x = _depthwise(F.pad(x, (pad, pad, 0, 0), mode="reflect"), k[None, :])
+    return x.permute(0, 2, 3, 1)
+
+
+_SOBEL_X = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]]) / 8.0
+
+
+def spatial_gradient(x_nhwc):
+    """kornia spatial_gradient (sobel, order 1, normalized=True): replicate
+    padding, normalised sobel kernels. Returns (dx, dy), each NHWC."""
+    xp = F.pad(x_nhwc.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
+    sobel = _SOBEL_X.to(x_nhwc.device)
+    return (_depthwise(xp, sobel).permute(0, 2, 3, 1),
+            _depthwise(xp, sobel.t()).permute(0, 2, 3, 1))
+
+
+def normals_from_depth(depth_bhw1, invK_b44, kernel_size: int = 5, sigma: float = 2.0):
+    """Normals of a depth map (geometry_utils.py:96-142): Gaussian-smooth the
+    depth, backproject, take the spatial gradients of the 3D points, cross
+    them and normalise. Returns (B, H, W, 3)."""
+    b, h, w, _ = depth_bhw1.shape
+    smooth = gaussian_blur(depth_bhw1, kernel_size, sigma)
+    pts_b4n = backproject_depth(smooth.reshape(b, 1, -1), invK_b44, h, w)
+    pts_bhw3 = pts_b4n[:, :3].reshape(b, 3, h, w).permute(0, 2, 3, 1)
+    gx, gy = spatial_gradient(pts_bhw3)
+    return normalize_vectors(torch.linalg.cross(gx, gy, dim=-1), -1)
 
 
 def rotx(t):

@@ -11,6 +11,8 @@ everything that does not read images (the synthetic dataset, the runners).
 
 from __future__ import annotations
 
+import os
+import shutil
 from typing import Optional
 
 import numpy as np
@@ -26,6 +28,19 @@ def readlines(filepath: str):
 
 def imagenet_normalize(image_hw3: np.ndarray) -> np.ndarray:
     return ((image_hw3 - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)
+
+
+def reverse_imagenet_normalize(image_hw3: np.ndarray) -> np.ndarray:
+    return image_hw3 * IMAGENET_STD + IMAGENET_MEAN
+
+
+def copy_code_state(path: str):
+    """Snapshot the port's source (the ``doubletake_tpu_torch`` package,
+    kernels included) into ``path/doubletake_tpu_torch``, for reproducibility
+    (reference generic_utils.py:17-34)."""
+    package = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(package, os.path.join(path, os.path.basename(package)), dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
 
 
 def read_image_file(

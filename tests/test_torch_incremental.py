@@ -35,6 +35,7 @@ from doubletake_tpu_torch.checkpoints.convert import variables_to_state_dict
 from doubletake_tpu_torch.options import Options
 from doubletake_tpu_torch.runners import common, incremental, no_hint, offline_two_pass, revisit
 from doubletake_tpu_torch.tools.tsdf import TSDF
+from doubletake_tpu_torch.training import train_loop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -153,6 +154,8 @@ def test_cuda_is_the_default_device():
     for runner in (incremental, no_hint, offline_two_pass, revisit):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             runner.run(o)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop.train(o)
 
 
 def test_port_imports_no_jax():
@@ -171,6 +174,9 @@ sys.meta_path.insert(0, Block())
 import doubletake_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(doubletake_tpu_torch.__path__,
                                               "doubletake_tpu_torch.")]
+assert {"doubletake_tpu_torch.train", "doubletake_tpu_torch.losses",
+        "doubletake_tpu_torch.training.train_loop",
+        "doubletake_tpu_torch.training.augmentation"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
