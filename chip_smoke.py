@@ -36,7 +36,10 @@ Phases (each one fails the run on error):
      truncation, random weights from a seeded generator, over the scan's 33
      frames; both kernels must launch once per frame; maps/s is the frames
      over the scan loop's wall time (loader waits included), beside the
-     inverse of the mean per-frame step time;
+     inverse of the mean per-frame step time; the run's mesh (``synth0.ply``,
+     exported after the timed loop) must load, have faces and lie inside the
+     volume, and its export ms and vertex / face counts are recorded (so in
+     phases 7-9 too);
   5. whole-step parity on the card: the first frames through the kernel path
      and through the plain path (plain volume, plain integrate) with the
      same weights: s0 depth p99 <= 1e-2 m and Abs-Diff delta <= 5e-4 m;
@@ -74,8 +77,24 @@ Phases (each one fails the run on error):
      the train steps (autograd takes the plain path) and once per
      validation batch; then, on one fixed batch, the median warm train-step
      time, samples/s, peak device memory, and the loss over 6 steps at lr
-     1e-5 falling below its first value (``FIXED_BATCH_LR``).
-  In phases 7-10 both kernels must launch as often as the path's batches and
+     1e-5 falling below its first value (``FIXED_BATCH_LR``);
+  12. colour fusion: ``runners.no_hint.run`` as in phase 7 with
+     ``fuse_color``: K1 once per batch, K2 never (a coloured volume takes the
+     dense plain-torch pass); the volume's colours finite and in [0, 1], the
+     PLY with vertex colours. Then the scan's GT depths with their RGB fused
+     into a coloured volume, and the same depths without colour through K2:
+     values and weights bit-equal; ms per frame of both;
+  13. the mesh against the truth: the scan's GT depths fused through K2 at
+     0.02 m / 3.5 m and meshed; the visibility volume (0.04 m) built on the
+     card by ``scripts.create_visibility_volume`` from the GT depths, and one
+     frame's ``integrate_visibility`` on the card against the CPU (at most
+     1e-4 of the voxels differ); ``scripts.mesh_eval`` of that mesh against
+     the scene's analytic mesh (``SyntheticScene.gt_mesh``): accuracy < 2 cm
+     and precision > 0.95 (completion and recall reported: the orbit does
+     not see every face); the GT mesh against its own samples gives Chamfer
+     0 and F-score 1; phase 4's mesh (random weights) against the GT,
+     finite, reported.
+  In phases 7-10 and 12 both kernels must launch as often as the path's batches and
   fused frames imply (counted from the dataset's length and the batch
   size), the metrics must be finite, hint coverage (pass 2, rescan) > 0,
   and the first batch of each model run of the path must agree between the
@@ -554,10 +573,10 @@ def run_main_path(opts):
     launches = {"fused_volume": fv.fused_feature_volume.launches,
                 "integrate": ig.fused_integrate.launches}
 
-    scores = os.path.join(opts.output_base_path, opts.name, "incremental_default", "scores",
-                          "synth0_metrics.json")
-    with open(scores) as f:
+    base = os.path.join(opts.output_base_path, opts.name, "incremental_default")
+    with open(os.path.join(base, "scores", "synth0_metrics.json")) as f:
         json.load(f)
+    mesh = check_mesh("main path", os.path.join(base, "meshes"), "synth0", res["meshes"]["synth0"])
     frames = len(dataset_from_opts(opts, split=opts.split))
     fa = res["frame_avg"]
     require_finite("main path", fa, ("abs_diff", "abs_rel", "a5", "frame_time", "hint_time",
@@ -577,6 +596,7 @@ def run_main_path(opts):
         "hint_coverage": fa["hint_coverage"], "abs_diff": fa["abs_diff"],
         "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
                          if torch.cuda.is_available() else None),
+        "mesh": mesh,
     }
     log(f"main path: {frames} frames, {summary['maps_per_s']:.2f} maps/s over the scan loop, "
         f"{summary['step_maps_per_s']:.2f} maps/s by mean step "
@@ -725,6 +745,30 @@ def require_finite(path, metrics, keys):
             raise RuntimeError(f"{path}: metric {key} missing or not finite")
 
 
+def check_mesh(path, meshes_dir, scan, exported, colors=False):
+    """The run's ``<scan>.ply``: it loads, has faces, lies inside the volume
+    of ``<scan>_tsdf.npz``, carries vertex colours exactly when ``colors``,
+    and matches the counts the run returned. Returns export ms and counts."""
+    import numpy as np
+
+    from doubletake_tpu_torch.tools.marching_cubes import load_ply
+
+    verts, faces, rgb = load_ply(os.path.join(meshes_dir, f"{scan}.ply"), return_colors=True)
+    with np.load(os.path.join(meshes_dir, f"{scan}_tsdf.npz")) as vol:
+        lo = vol["origin"].astype(np.float64)
+        hi = lo + (np.array(vol["tsdf_values"].shape) - 1) * float(vol["voxel_size"])
+    inside = bool(len(verts) and (verts >= lo - 1e-4).all() and (verts <= hi + 1e-4).all())
+    row = {"export_ms": exported["export_s"] * 1e3, "verts": len(verts), "faces": len(faces),
+           "vertex_colors": rgb is not None}
+    log(f"{path} mesh {scan}.ply: {row['verts']} vertices, {row['faces']} faces, exported in "
+        f"{row['export_ms']:.1f} ms, inside the volume {inside}, colours {rgb is not None}")
+    if not (len(faces) and inside and int(faces.max()) < len(verts)
+            and (len(verts), len(faces)) == (exported["verts"], exported["faces"])
+            and (rgb is not None) == colors):
+        raise RuntimeError(f"{path}: bad mesh {scan}.ply: {row}, inside {inside}")
+    return row
+
+
 def drive(path, run, opts, model, expected):
     """One run of a path with both kernels' counts set to 0 just before it
     and read just after; fails unless each kernel launched ``expected``
@@ -819,11 +863,13 @@ def run_no_hint_path(out_dir, batch_np):
         "frames": frames, "maps_per_s": frames / res["scan_time"],
         "step_maps_per_s": 1.0 / fa["frame_time"], "model_ms_per_frame": fa["model_time"] * 1e3,
         "abs_diff": fa["abs_diff"], "parity": parity,
+        "mesh": check_mesh("no-hint", os.path.join(out_dir, opts.name, "no_hint_default",
+                                                   "meshes"), "synth0", res["meshes"]["synth0"]),
     })
     log(f"no-hint: {frames} frames, {summary['maps_per_s']:.2f} maps/s over the scan loop, "
         f"{summary['step_maps_per_s']:.2f} by mean step (model {summary['model_ms_per_frame']:.1f} "
         f"ms a frame), peak {summary['peak_mem_gib']:.2f} GiB, launches {summary['launches']}")
-    return summary
+    return summary, model
 
 
 def run_offline_path(out_dir, model, batch_np, profile=False):
@@ -862,9 +908,10 @@ def run_offline_path(out_dir, model, batch_np, profile=False):
         "hint_coverage": fa["hint_coverage"], "abs_diff": fa["abs_diff"],
         "parity_pass1": parity_pass1,
     })
+    meshes_dir = os.path.join(out_dir, opts.name, "offline_two_pass_default", "meshes")
+    summary["mesh"] = check_mesh("offline", meshes_dir, "synth0", res["meshes"]["synth0"])
 
-    hint_path = os.path.join(out_dir, opts.name, "offline_two_pass_default", "meshes",
-                             "synth0_hint_tsdf.npz")
+    hint_path = os.path.join(meshes_dir, "synth0_hint_tsdf.npz")
     loaded = TSDF.load(hint_path, device=device)
     static = prepare_static(loaded)
     samples = common.resolve_raycast_samples(opts, static.voxel_size, offline_two_pass.HINT_MAX_DEPTH)
@@ -950,6 +997,9 @@ def run_revisit_path(out_dir, model):
         "first_visit_maps_per_s": first / pt["first_visit"],
         "rescan_maps_per_s": rescan / pt["rescan"], "step_maps_per_s": 1.0 / fa["frame_time"],
         "hint_coverage": fa["hint_coverage"], "abs_diff": fa["abs_diff"],
+        "mesh": check_mesh("revisit", os.path.join(out_dir, opts.name, "revisit_default",
+                                                   "meshes"), opts.single_debug_scan_id,
+                           res["meshes"][opts.single_debug_scan_id]),
     })
 
     # the parity check on the hint volume this run built from the first visit
@@ -1207,6 +1257,228 @@ def run_train_path(out_dir):
     return summary
 
 
+# ------------------------------------------------------ meshes and colour
+
+
+def gt_frames(ds, device):
+    """The scan's GT frames at depth resolution on the card, one per tuple
+    (its current frame): (depth (H, W, 1), cam_T_world, K_s0, RGB (H, W, 3)
+    resized as ``runners.common.rgb_for_fusion`` resizes a batch)."""
+    import torch
+
+    from doubletake_tpu_torch.ops.resize import interpolate_bilinear
+
+    K0 = torch.from_numpy(ds.load_intrinsics("synth0")["K_s0_b44"]).to(device)
+    frames = []
+    for line in ds.frame_tuples:
+        scan, fid = line.split(" ")[:2]
+        depth, _, _ = ds.load_target_size_depth_and_mask(scan, fid)
+        rgb = torch.from_numpy(ds.load_color(scan, fid)).to(device)[None]
+        rgb = interpolate_bilinear(rgb, depth.shape[:2]).clamp(0.0, 1.0)[0]
+        frames.append((torch.from_numpy(depth).to(device),
+                       torch.from_numpy(ds.load_pose(scan, fid)[1]).to(device), K0, rgb))
+    return frames
+
+
+def timed_fuse(vol, cfg, frames, color):
+    """Fuse ``frames`` into ``vol`` (with their RGB if ``color``); the ms of
+    each frame, CUDA events around each call."""
+    import torch
+
+    from doubletake_tpu_torch.tools.tsdf import integrate_depth
+
+    times = []
+    with torch.no_grad():
+        for depth, cTw, K, rgb in frames:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            integrate_depth(vol, depth, cTw, K, cfg, image_hw3=rgb if color else None)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    return times
+
+
+def run_color_path(out_dir, model):
+    """Phase 12: the no-hint path with fuse_color, then the GT depths fused
+    with colour (dense plain pass) and without (K2), bit-equal."""
+    import numpy as np
+    import torch
+
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.runners import common, no_hint
+    from doubletake_tpu_torch.tools.tsdf import TSDF
+
+    opts = no_hint_options(out_dir)
+    opts.name = "chip_smoke_color"
+    opts.fuse_color = True
+    device = torch.device(opts.device)
+    ds = dataset_from_opts(opts, split=opts.split)
+    frames = len(ds)
+    # K1 once a batch; a coloured volume takes no K2 launch
+    expected = {"fused_volume": -(-frames // BATCH), "integrate": 0}
+    res, summary = drive("colour no-hint", no_hint.run, opts, model, expected)
+    require_finite("colour no-hint", res["frame_avg"], ("abs_diff", "abs_rel", "frame_time"))
+    meshes_dir = os.path.join(out_dir, opts.name, "no_hint_default", "meshes")
+    vol = TSDF.load(os.path.join(meshes_dir, "synth0_tsdf.npz"))
+    colors = vol.colors.float()
+    observed = vol.weights > 0
+    if not (torch.isfinite(colors).all() and float(colors.min()) >= 0.0
+            and float(colors.max()) <= 1.0 and float(colors[observed].max()) > 0.0):
+        raise RuntimeError("colour no-hint: colours not finite in [0, 1], or all zero")
+    summary.update({
+        "frames": frames, "maps_per_s": frames / res["scan_time"],
+        "step_maps_per_s": 1.0 / res["frame_avg"]["frame_time"],
+        "mean_observed_color": colors[observed].mean(0).tolist(),
+        "mesh": check_mesh("colour no-hint", meshes_dir, "synth0", res["meshes"]["synth0"],
+                           colors=True),
+    })
+
+    # the GT depths with their RGB (dense plain pass) against the same
+    # depths through K2: values and weights bit-equal, no K2 launch for colour
+    gt = gt_frames(dataset_from_opts(opts, split=opts.split, limit_to_scan_id="synth0"), device)
+    vol_c, cfg = common.make_fuser(opts, ds, "synth0", device)
+    vol_k = TSDF(vol_c.values.clone(), vol_c.weights.clone(), vol_c.origin, vol_c.voxel_size)
+    before = ig.fused_integrate.launches
+    color_ms = timed_fuse(vol_c, cfg, gt, color=True)
+    color_launches = ig.fused_integrate.launches - before
+    k2_ms = timed_fuse(vol_k, cfg, gt, color=False)
+    k2_launches = ig.fused_integrate.launches - before - color_launches
+    bad = int((vol_c.values != vol_k.values).sum()) + int((vol_c.weights != vol_k.weights).sum())
+    c = vol_c.colors.float()
+    summary["gt_fusion"] = {
+        "frames": len(gt), "differing_elements": bad, "k2_launches_colour": color_launches,
+        "k2_launches_plain": k2_launches, "observed_voxels": int((vol_k.weights > 0).sum()),
+        "colour_ms_per_frame": float(np.median(color_ms)), "colour_ms_all": color_ms,
+        "k2_ms_per_frame": float(np.median(k2_ms)), "k2_ms_all": k2_ms}
+    g = summary["gt_fusion"]
+    log(f"colour no-hint: {frames} frames, launches {summary['launches']}, colours in [0, 1]; "
+        f"GT fusion of {len(gt)} frames with colour {g['colour_ms_per_frame']:.3f} ms a frame "
+        f"(dense plain pass, {color_launches} K2 launches) vs K2 {g['k2_ms_per_frame']:.4f} ms "
+        f"a frame ({k2_launches} launches): {bad} differing elements")
+    if bad or color_launches or k2_launches != len(gt) or g["observed_voxels"] == 0 or not (
+            torch.isfinite(c).all() and 0.0 <= float(c.min()) and float(c.max()) <= 1.0):
+        raise RuntimeError(f"colour GT fusion: {g}")
+    return summary
+
+
+def run_mesh_truth_path(out_dir, main_mesh_path):
+    """Phase 13: the GT-depth mesh against the scene's analytic mesh under
+    the visibility mask, through the two CLIs."""
+    import numpy as np
+    import torch
+
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.eval.mesh_eval import (
+        compute_mesh_metrics,
+        evaluate_mesh,
+        sample_mesh_points,
+    )
+    from doubletake_tpu_torch.eval.visibility import SimpleVolume, integrate_visibility
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.runners import common
+    from doubletake_tpu_torch.scripts import create_visibility_volume, mesh_eval
+    from doubletake_tpu_torch.tools.marching_cubes import load_ply, save_ply
+
+    opts = flagship_options(out_dir)
+    opts.name = "chip_smoke_mesh"
+    device = torch.device(opts.device)
+    ds = dataset_from_opts(opts, split=opts.split, limit_to_scan_id="synth0")
+    gt = gt_frames(ds, device)
+    base = os.path.join(out_dir, opts.name)
+    pred_dir, gt_dir = os.path.join(base, "pred"), os.path.join(base, "gt")
+    os.makedirs(pred_dir, exist_ok=True)
+
+    # the GT depths through K2 at the score fuser's 0.02 m / 3.5 m
+    vol, cfg = common.make_fuser(opts, ds, "synth0", device)
+    fv.fused_feature_volume.launches = 0
+    ig.fused_integrate.launches = 0
+    fuse_ms = timed_fuse(vol, cfg, gt, color=False)
+    launches = {"fused_volume": fv.fused_feature_volume.launches,
+                "integrate": ig.fused_integrate.launches}
+    if launches != {"fused_volume": 0, "integrate": len(gt)}:
+        raise RuntimeError(f"mesh truth: launches {launches}")
+    vol.save(os.path.join(pred_dir, "synth0_tsdf.npz"))
+    mesh = check_mesh("mesh truth", pred_dir, "synth0",
+                      common.export_scan_mesh(vol, pred_dir, "synth0"))
+    gt_v, gt_f = ds.get_gt_mesh("synth0")
+    save_ply(os.path.join(gt_dir, "synth0.ply"), gt_v, gt_f)
+
+    # the visibility volume by its CLI on the card, and the same frames timed
+    t0 = time.perf_counter()
+    paths = create_visibility_volume.main([
+        "--dataset", "synthetic", "--split", opts.split, "--name", opts.name,
+        "--output_base_path", out_dir, "--image_width", str(opts.image_width),
+        "--image_height", str(opts.image_height), "--num_workers", str(opts.num_workers),
+        "--single_debug_scan_id", "synth0", "--device", opts.device])
+    cli_s = time.perf_counter() - t0
+    vis = SimpleVolume.load(paths["synth0"], device=device)
+    mine = SimpleVolume.from_bounds(common.scene_bounds_for_fusion(ds, "synth0"),
+                                    create_visibility_volume.VOXEL_SIZE, device=device)
+    vis_ms = []
+    for depth, cTw, K, _ in gt:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        integrate_visibility(mine, depth, cTw, K)
+        b.record()
+        b.synchronize()
+        vis_ms.append(a.elapsed_time(b))
+    cli_vs_frames = int((mine.values != vis.values).sum())
+    # one frame on the card against the CPU
+    depth, cTw, K, _ = gt[len(gt) // 2]
+    one = []
+    for dev in (device, torch.device("cpu")):
+        v = SimpleVolume.from_bounds(common.scene_bounds_for_fusion(ds, "synth0"),
+                                     create_visibility_volume.VOXEL_SIZE, device=dev)
+        one.append(integrate_visibility(v, depth.to(dev), cTw.to(dev), K.to(dev)).values.cpu())
+    cpu_share = float((one[0] != one[1]).float().mean())
+
+    # the CLI's metrics of the GT-depth mesh, and the self-checks
+    t0 = time.perf_counter()
+    payload = mesh_eval.main(["--pred_dir", pred_dir, "--gt_dir", gt_dir, "--visibility_dir",
+                              os.path.dirname(paths["synth0"]), "--output_json",
+                              os.path.join(base, "mesh_metrics.json"), "--device", opts.device])
+    eval_s = time.perf_counter() - t0
+    metrics = payload["per_scene"]["synth0"]
+    pts = sample_mesh_points(gt_v, gt_f)
+    self_metrics = compute_mesh_metrics(pts, pts)
+    t0 = time.perf_counter()
+    floor = evaluate_mesh(gt_v, gt_f, gt_v, gt_f, visibility_volume=vis)
+    floor_s = time.perf_counter() - t0
+    main_v, main_f = load_ply(main_mesh_path)
+    random_weights = evaluate_mesh(main_v, main_f, gt_v, gt_f, visibility_volume=vis)
+    summary = {
+        "launches": launches, "frames": len(gt), "fuse_ms_per_frame": float(np.median(fuse_ms)),
+        "mesh": mesh, "visibility": {
+            "cli_s": cli_s, "ms_per_frame": float(np.median(vis_ms)), "ms_all": vis_ms,
+            "dims": list(vis.values.shape), "visible_share": float(vis.values.mean()),
+            "cli_vs_timed_differing_voxels": cli_vs_frames,
+            "cuda_vs_cpu_differing_share": cpu_share},
+        "metrics": metrics, "eval_s": eval_s, "self_check": self_metrics,
+        "gt_vs_gt_sampling": floor, "gt_vs_gt_s": floor_s,
+        "main_path_random_weights": random_weights,
+    }
+    log(f"mesh truth: GT-depth mesh vs the analytic room: acc {metrics['acc']:.3f} cm, compl "
+        f"{metrics['compl']:.3f} cm, chamfer {metrics['chamfer']:.3f} cm, precision "
+        f"{metrics['precision']:.4f}, recall {metrics['recall']:.4f}, F {metrics['fscore']:.4f} "
+        f"(eval {eval_s:.1f} s); GT vs its own samples chamfer {self_metrics['chamfer']} F "
+        f"{self_metrics['fscore']}; GT vs GT resampled acc {floor['acc']:.3f} cm; main path "
+        f"(random weights) acc {random_weights['acc']:.2f} cm F {random_weights['fscore']:.4f}")
+    log(f"mesh truth: visibility {vis.values.shape} at {create_visibility_volume.VOXEL_SIZE} m, "
+        f"{summary['visibility']['ms_per_frame']:.3f} ms a frame, CLI {cli_s:.1f} s, "
+        f"{summary['visibility']['visible_share']:.3f} visible, card vs CPU {cpu_share:.2e} of "
+        f"the voxels differ, CLI vs timed loop {cli_vs_frames} voxels")
+    finite = all(np.isfinite(v) for v in list(metrics.values()) + list(random_weights.values()))
+    if not (finite and metrics["acc"] < 2.0 and metrics["precision"] > 0.95
+            and self_metrics["chamfer"] == 0.0 and self_metrics["fscore"] == 1.0
+            and cpu_share <= 1e-4 and cli_vs_frames == 0
+            and 0.0 < summary["visibility"]["visible_share"] < 1.0):
+        raise RuntimeError(f"mesh truth failed: {summary}")
+    return summary
+
+
 # -------------------------------------------------------------- kernel line
 
 
@@ -1335,7 +1607,7 @@ def main(argv):
     device = common.resolve_device(opts)   # cuda, TF32 off
 
     t0 = time.perf_counter()
-    kbuild.build(["fused_volume", "integrate"])
+    kbuild.build(["fused_volume", "integrate", "marching"])
     build_s = time.perf_counter() - t0
     log(f"built kernels in {build_s:.1f} s into {kbuild.BUILD_DIR}")
     for name, text in kbuild.build_logs.items():
@@ -1367,13 +1639,18 @@ def main(argv):
             if "--profile" in argv:
                 results["profile"] = profile_main_step(opts, model)
             batch_np = first_batch(opts, "synth0", BATCH)
-            paths = {"no_hint": run_no_hint_path(tmp, batch_np)}
+            no_hint_summary, no_hint_model = run_no_hint_path(tmp, batch_np)
+            paths = {"no_hint": no_hint_summary}
             paths["offline_two_pass"] = run_offline_path(tmp, model, batch_np,
                                                          "--profile" in argv)
             paths["revisit"] = run_revisit_path(tmp, model)
             paths["offline_bf16"] = run_offline_bf16_path(tmp, model, batch_np)
             del model
             paths["train"] = run_train_path(tmp)
+            paths["color_no_hint"] = run_color_path(tmp, no_hint_model)
+            del no_hint_model
+            paths["mesh_truth"] = run_mesh_truth_path(tmp, os.path.join(
+                opts.output_base_path, opts.name, "incremental_default", "meshes", "synth0.ply"))
             results["paths"] = paths
             kernels = time_kernels(k1, k1_bf16, k2, main_summary["launches"],
                                    paths["offline_bf16"]["launches"]["fused_volume"])

@@ -51,6 +51,21 @@ class SyntheticScene:
         b = 0.25 + 0.5 * checker + 0.1 * np.sin(5.0 * pts_n3[:, 1] + s[2])
         return np.clip(np.stack([r, g, b], -1), 0.0, 1.0).astype(np.float32)
 
+    def gt_mesh(self):
+        """The scene's exact surface as a triangle mesh: the room's box and
+        every solid box, 8 corners and 12 triangles each. Returns (verts
+        (8 * boxes, 3) float32, faces (12 * boxes, 3) int32)."""
+        corners = np.array([[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)])
+        # two triangles per side, corners indexed i * 4 + j * 2 + k
+        quads = ((0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4),
+                 (1, 5, 7, 3))
+        tris = np.array([t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))])
+        verts, faces = [], []
+        for n, (bmin, bmax) in enumerate([(self.room_min, self.room_max), *self.boxes]):
+            verts.append(bmin + corners * (bmax - bmin))
+            faces.append(tris + 8 * n)
+        return np.concatenate(verts).astype(np.float32), np.concatenate(faces).astype(np.int32)
+
     @staticmethod
     def _ray_box_enter(origins, dirs, bmin, bmax):
         """Slab-method entry distance for rays vs a solid box; inf if miss."""
@@ -263,3 +278,7 @@ class SyntheticDataset(GenericMVSDataset):
     def get_gt_mesh_bounds(self, scan_id):
         scene = self.scene(scan_id)
         return scene.room_min, scene.room_max
+
+    def get_gt_mesh(self, scan_id):
+        """(verts, faces) of the scan's scene surface (``SyntheticScene.gt_mesh``)."""
+        return self.scene(scan_id).gt_mesh()

@@ -1,12 +1,15 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+"""Build and load the port's native code (``csrc/``) at first use.
 
-Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface under ``build/torch_kernels/`` at the repo
-root, and loaded with ``ctypes``. The library name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale one never
-loaded. Nothing is built when a module is imported: ``load_kernel`` runs the
-build the first time a wrapper launches on a CUDA tensor, and ``build``
-compiles several sources in parallel (one ``nvcc`` each).
+Each CUDA source (``csrc/*.cu``) is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface under
+``build/torch_kernels/`` at the repo root, and loaded with ``ctypes``. The
+host sources (``csrc/*.cpp``: the marching-tetrahedra mesh extractor) take
+the same route through ``g++`` with the JAX package's flags
+(``doubletake_tpu/tools/marching_cubes.py:25-30``), on any machine. The
+library name carries a hash of the source and the flags, so an edited source
+is rebuilt and a stale one never loaded. Nothing is built when a module is
+imported: ``load_kernel`` runs the build the first time a wrapper needs it,
+and ``build`` compiles several sources in parallel (one compiler each).
 """
 
 from __future__ import annotations
@@ -25,12 +28,15 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# host sources: the JAX package builds native/marching.cpp with these
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+HOST_SOURCES = ("marching",)
 # per-kernel extra flags: the integrate kernel must not contract a*b+c into
 # an fma, or it stops agreeing bit for bit with its plain torch version
 EXTRA_FLAGS = {"integrate": ("-fmad=false",)}
 
 _loaded: dict = {}
-build_logs: dict = {}   # kernel name -> nvcc output (registers, spills)
+build_logs: dict = {}   # kernel name -> compiler output (registers, spills)
 
 
 def nvcc_path() -> str:
@@ -41,18 +47,28 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _source(name: str) -> Path:
+    return CSRC_DIR / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
 def _flags(name: str):
+    if name in HOST_SOURCES:
+        return HOST_FLAGS
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
+def _compiler(name: str) -> str:
+    return "g++" if name in HOST_SOURCES else nvcc_path()
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = _source(name).read_bytes()
     digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names) -> None:
-    """Compile the named kernels that are not built yet, all at once."""
+    """Compile the named sources that are not built yet, all at once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -60,7 +76,7 @@ def build(names) -> None:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_compiler(name), *_flags(name), str(_source(name)), "-o", str(tmp)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, out)
     failed = []
@@ -72,11 +88,11 @@ def build(names) -> None:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
 
 
 def load_kernel(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of source ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])

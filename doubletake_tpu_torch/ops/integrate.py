@@ -12,7 +12,10 @@ copies the result into the volume.
 kernel's operation order — the projection as p0*cx + p1*cy + p2*cz + p3, not
 a matmul; every divisor a tensor, so no op is turned into a multiplication
 by a reciprocal — so that kernel and plain version agree bit for bit on the
-card.
+card. ``voxel_update_plain`` is the same step returning also the per-voxel
+terms (validity, sampled pixel, weights) that the colour update of
+``tools.tsdf.integrate_depth`` reuses, so a coloured volume's values and
+weights come out of this very arithmetic.
 
 Each warp of the kernel owns a box of ``BOX`` voxels and skips it when its 8
 corners prove that none of its voxels can update (beyond ``max_depth``, or
@@ -41,11 +44,20 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((1,), x, dtype=torch.float32, device=like.device)
 
 
-def integrate_plain(values_xyz, weights_xyz, depth_hw, P_34, origin_3, *,
-                    voxel_size: float, min_depth: float, max_depth: float,
-                    truncation: float, trunc_check: float, update_rate: float,
-                    max_weight: float):
+def integrate_plain(values_xyz, weights_xyz, depth_hw, P_34, origin_3, **kw):
     """One dense fusion step; returns new (values, weights), inputs untouched."""
+    new_v, new_w, _ = voxel_update_plain(values_xyz, weights_xyz, depth_hw, P_34, origin_3, **kw)
+    return new_v, new_w
+
+
+def voxel_update_plain(values_xyz, weights_xyz, depth_hw, P_34, origin_3, *,
+                       voxel_size: float, min_depth: float, max_depth: float,
+                       truncation: float, trunc_check: float, update_rate: float,
+                       max_weight: float):
+    """``integrate_plain`` with the terms a colour update reuses: returns new
+    (values, weights) and a dict of per-voxel ``valid``, ``in_img``, the
+    sampled pixel's flat index ``flat``, the frame's weight ``new_w`` and
+    the unclamped ``total`` weight (the JAX ``_voxel_update``, tsdf.py:135-221)."""
     X, Y, Z = values_xyz.shape
     H, W = depth_hw.shape
     dev = values_xyz.device
@@ -76,8 +88,9 @@ def integrate_plain(values_xyz, weights_xyz, depth_hw, P_34, origin_3, *,
     new_w = conf * update_rate / _scalar(max_weight, conf)
     total = weights_xyz + new_w
     fused = (values_xyz * weights_xyz + tsdf * new_w) / total
+    terms = dict(valid=valid, in_img=in_img, flat=flat, new_w=new_w, total=total)
     return (torch.where(valid, fused, values_xyz),
-            torch.where(valid, total.clamp(max=1.0), weights_xyz))
+            torch.where(valid, total.clamp(max=1.0), weights_xyz), terms)
 
 
 def block_cull_plain(dims, hw, P_34, origin_3, *, voxel_size: float, max_depth: float):

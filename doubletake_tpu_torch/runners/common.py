@@ -1,7 +1,7 @@
 """Shared runner infrastructure: device selection, model construction and
 weights, options the port does not run yet, stage timing, the metric
-protocol (nearest upsample to full-res GT, valid > 0.5 m), the fusers and
-the hint render.
+protocol (nearest upsample to full-res GT, valid > 0.5 m), the fusers (with
+colour), the hint render and the mesh export.
 
 Protocol parity with the reference eval scripts (test_no_hint.py:177-212,
 test_incremental.py:290-326): predictions are nearest-upsampled to the
@@ -21,9 +21,11 @@ from doubletake_tpu_torch.checkpoints.convert import lazy_load_state_dict, load_
 from doubletake_tpu_torch.checkpoints.io import cast_floating
 from doubletake_tpu_torch.models.depth_model import get_model_class
 from doubletake_tpu_torch.models.layers import init_parameters
-from doubletake_tpu_torch.ops.resize import interpolate_nearest
+from doubletake_tpu_torch.ops.resize import interpolate_bilinear, interpolate_nearest
 from doubletake_tpu_torch.options import Options
+from doubletake_tpu_torch.tools.marching_cubes import export_mesh
 from doubletake_tpu_torch.tools.tsdf import TSDF, FusionConfig, auto_raycast_samples, raycast
+from doubletake_tpu_torch.utils.io import IMAGENET_MEAN, IMAGENET_STD
 from doubletake_tpu_torch.utils.metrics import compute_depth_metrics_batched
 
 EVAL_MIN_DEPTH = 0.5  # valid GT depth threshold (test_no_hint.py:184)
@@ -168,6 +170,18 @@ def render_hint(vol, cur, hint_h, hint_w, raycast_samples, max_depth):
     }
 
 
+def rgb_for_fusion(opts: Options, cur, out_hw):
+    """De-normalised RGB at the fusion depth's size for colour fusion, or
+    None without ``fuse_color`` (the reference's Open3DFuser resizes the
+    colour to the depth map; JAX runners/common.py:95-105)."""
+    if not opts.fuse_color:
+        return None
+    img = cur["image_bhw3"]
+    img = (img * torch.as_tensor(IMAGENET_STD, device=img.device)
+           + torch.as_tensor(IMAGENET_MEAN, device=img.device))
+    return interpolate_bilinear(img, out_hw).clamp(0.0, 1.0)
+
+
 def depth_for_fusion(opts: Options, out):
     """Depth fed to the fuser, honoring mask_pred_depth (invalidate pixels
     with no valid MVS info) and fusion_use_raw_lowest_cost (fuse the cost
@@ -241,13 +255,19 @@ def scene_bounds_for_fusion(dataset, scan_id, max_extent: float = 10.0):
 
 
 def make_fuser(opts: Options, dataset, scan_id, device) -> Tuple[TSDF, FusionConfig]:
-    """Score fuser ("ours"): resolution and max depth from opts (0.02 m /
-    3.5 m for published scores), extended negative truncation optional.
-    The color-fusing Open3D fusers are not ported yet."""
-    if opts.depth_fuser != "ours" or opts.fuse_color:
-        raise ValueError(f"depth_fuser {opts.depth_fuser!r} / fuse_color not ported yet")
+    """Score fuser: resolution and max depth from opts (0.02 m / 3.5 m for
+    published scores), extended negative truncation optional.
+
+    depth_fuser names the reference's fuser family (get_fuser,
+    fusers_helper.py:214-260): "ours" is the paper-score fuser, "open3d" /
+    "custom_open3d" were its colour-capable Open3D wrappers. One TSDF covers
+    all three; it carries colours with ``fuse_color`` or an open3d name, as
+    the JAX package's does (runners/common.py:189-208)."""
+    if opts.depth_fuser not in ("ours", "open3d", "custom_open3d"):
+        raise ValueError(f"depth_fuser: {opts.depth_fuser} unknown")
+    with_color = opts.fuse_color or opts.depth_fuser in ("open3d", "custom_open3d")
     tsdf = TSDF.from_bounds(scene_bounds_for_fusion(dataset, scan_id),
-                            opts.fusion_resolution, device=device)
+                            opts.fusion_resolution, device=device, with_color=with_color)
     cfg = FusionConfig(min_depth=EVAL_MIN_DEPTH, max_depth=opts.fusion_max_depth,
                        extended_neg_truncation=opts.extended_neg_truncation)
     return tsdf, cfg
@@ -260,6 +280,15 @@ def make_hint_fuser(opts: Options, dataset, scan_id, device) -> Tuple[TSDF, Fusi
     cfg = FusionConfig(min_depth=EVAL_MIN_DEPTH, max_depth=3.0,
                        extended_neg_truncation=opts.extended_neg_truncation)
     return tsdf, cfg
+
+
+def export_scan_mesh(tsdf: TSDF, meshes_dir: str, scan_name: str):
+    """``<scan_name>.ply`` from a finalised volume (vertex colours when it
+    has colours); returns the export's seconds (host clock, the copy of the
+    volume to the host included) and its vertex and face counts."""
+    t0 = time.perf_counter()
+    verts, faces = export_mesh(tsdf, os.path.join(meshes_dir, f"{scan_name}.ply"))
+    return {"export_s": time.perf_counter() - t0, "verts": len(verts), "faces": len(faces)}
 
 
 def resolve_raycast_samples(opts: Options, voxel_size: float, max_depth: float) -> int:

@@ -13,8 +13,9 @@ The hint is rendered at image/4 with the depth-resolution intrinsics
 
 The volume lives on the device for the whole scan and the fuse step updates
 it in place. Each frame's hint / model / fuse times are taken with CUDA
-events on the GPU (host clock on the CPU) and stored with its metrics. Mesh
-export is not ported yet: the run saves the TSDF npz and the score JSONs.
+events on the GPU (host clock on the CPU) and stored with its metrics. After
+the scan loop's timed window the run saves the TSDF npz, its mesh
+(``<scan>.ply``) and the score JSONs.
 """
 
 from __future__ import annotations
@@ -87,7 +88,9 @@ def make_split_steps(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_dep
 
 
 def run(opts: Options, model=None):
-    """Run the incremental evaluation; returns the frame and scene averages.
+    """Run the incremental evaluation; returns the frame and scene averages,
+    the frames run, the scan loops' wall time and each scan's mesh export
+    (``meshes``: seconds, vertex and face counts).
 
     ``model``: an already built and weighted model (else built from opts and
     initialised or loaded by ``common.init_or_load_params``).
@@ -114,7 +117,7 @@ def run(opts: Options, model=None):
     scene_avg = ResultsAverager(opts.name, "scene avg")
     # wall time of the scan loops, from each loop's start to its last
     # frame's sync: unlike the per-frame times it includes loader waits
-    frames, scan_time = 0, 0.0
+    frames, scan_time, meshes = 0, 0.0, {}
 
     for scan_id in scans:
         ds = dataset_from_opts(opts, split=opts.split, limit_to_scan_id=scan_id,
@@ -160,9 +163,11 @@ def run(opts: Options, model=None):
         scan_metrics.compute_final_average()
         scan_metrics.output_json(os.path.join(scores_dir, f"{scan_id.replace('/', '_')}_metrics.json"))
         scene_avg.update_results(scan_metrics.final_metrics)
+        scan_name = scan_id.replace("/", "_")
         tsdf = common.finalize_tsdf(opts, tsdf)
-        tsdf.save(os.path.join(meshes_dir, f"{scan_id.replace('/', '_')}_tsdf.npz"))
+        tsdf.save(os.path.join(meshes_dir, f"{scan_name}_tsdf.npz"))
+        meshes[scan_name] = common.export_scan_mesh(tsdf, meshes_dir, scan_name)
 
     common.write_scores(scores_dir, all_frame_avg, scene_avg)
     return {"frame_avg": all_frame_avg.final_metrics, "scene_avg": scene_avg.final_metrics,
-            "frames": frames, "scan_time": scan_time}
+            "frames": frames, "scan_time": scan_time, "meshes": meshes}

@@ -4,10 +4,11 @@ JAX package's runners/no_hint.py).
 Per scan, frames run through the model in batches of ``opts.batch_size``:
 SimpleRecon (``DepthModel``), or DoubleTake with an all-invalid hint. Each
 frame is scored against its full-resolution GT (valid > 0.5 m), and
-optionally fused (0.02 m / 3.5 m for published scores) and its depth cached
-to an npz. Scores go to per-scan and overall JSONs. A batch's model time is
-taken with CUDA events on the GPU (host clock on the CPU) and shared by its
-frames. Mesh export is not ported yet: fusion saves the TSDF npz.
+optionally fused (0.02 m / 3.5 m for published scores; with its RGB when
+``fuse_color`` is set) and its depth cached to an npz. Scores go to per-scan
+and overall JSONs. A batch's model time is taken with CUDA events on the GPU
+(host clock on the CPU) and shared by its frames. Fusion saves the TSDF npz
+and then its mesh, ``<scan>.ply``, after the scan loop's timed window.
 """
 
 from __future__ import annotations
@@ -39,8 +40,9 @@ def unique_scans(dataset):
 
 def run(opts: Options, model=None):
     """Run the no-hint evaluation; returns the frame and scene averages, the
-    frames run and the scan loops' wall time (from each loop's start to its
-    last sync, loader waits included).
+    frames run, the scan loops' wall time (from each loop's start to its
+    last sync, loader waits included) and, with fusion, each scan's mesh
+    export (``meshes``: seconds, vertex and face counts).
 
     ``model``: an already built and weighted model (else built from opts and
     initialised or loaded by ``common.init_or_load_params``).
@@ -60,7 +62,7 @@ def run(opts: Options, model=None):
 
     all_frame_avg = ResultsAverager(opts.name, "frame avg")
     scene_avg = ResultsAverager(opts.name, "scene avg")
-    frames, scan_time = 0, 0.0
+    frames, scan_time, meshes = 0, 0.0, {}
 
     for scan_id in scans:
         ds = dataset_from_opts(opts, split=opts.split, limit_to_scan_id=scan_id,
@@ -101,9 +103,11 @@ def run(opts: Options, model=None):
             if opts.run_fusion:
                 with torch.no_grad():
                     fusion_depth = common.depth_for_fusion(opts, out)
+                    rgb = common.rgb_for_fusion(opts, cur, fusion_depth.shape[1:3])
                     for i in range(bsz):
                         integrate_depth(tsdf, fusion_depth[i], cur["cam_T_world_b44"][i],
-                                        cur["K_s0_b44"][i], cfg)
+                                        cur["K_s0_b44"][i], cfg,
+                                        image_hw3=None if rgb is None else rgb[i])
             if opts.cache_depths:
                 cached_depths.append(depth.cpu().numpy())
                 cached_frame_ids.extend(cur_np.get("frame_id_string", []))
@@ -125,7 +129,8 @@ def run(opts: Options, model=None):
         if opts.run_fusion:
             tsdf = common.finalize_tsdf(opts, tsdf)
             tsdf.save(os.path.join(meshes_dir, f"{scan_name}_tsdf.npz"))
+            meshes[scan_name] = common.export_scan_mesh(tsdf, meshes_dir, scan_name)
 
     common.write_scores(scores_dir, all_frame_avg, scene_avg)
     return {"frame_avg": all_frame_avg.final_metrics, "scene_avg": scene_avg.final_metrics,
-            "frames": frames, "scan_time": scan_time}
+            "frames": frames, "scan_time": scan_time, "meshes": meshes}

@@ -12,7 +12,8 @@ published scores) runs frame by frame, since the running weighted mean
 depends on the order, when ``run_fusion`` is set.
 
 Both volumes are saved in the JAX package's npz format (``*_hint_tsdf.npz``,
-``*_tsdf.npz``). Mesh export is not ported yet.
+``*_tsdf.npz``), and the final volume's mesh as ``<scan>.ply``, after pass
+2's timed window.
 """
 
 from __future__ import annotations
@@ -84,8 +85,9 @@ def score_batch(out, hint, cur_np, device, t0, scan_metrics, all_frame_avg):
 
 def run(opts: Options, model=None):
     """Run the offline two-pass evaluation; returns the frame and scene
-    averages, the frames run and each pass's wall time over all scans
-    (from the pass's start to its last sync, loader waits included).
+    averages, the frames run, each pass's wall time over all scans (from
+    the pass's start to its last sync, loader waits included) and, with
+    fusion, each scan's mesh export (``meshes``).
 
     ``model``: an already built and weighted model (else built from opts and
     initialised or loaded by ``common.init_or_load_params``).
@@ -107,7 +109,7 @@ def run(opts: Options, model=None):
 
     all_frame_avg = ResultsAverager(opts.name, "frame avg")
     scene_avg = ResultsAverager(opts.name, "scene avg")
-    frames, pass_time = 0, {"pass1": 0.0, "pass2": 0.0}
+    frames, pass_time, meshes = 0, {"pass1": 0.0, "pass2": 0.0}, {}
 
     for scan_id in scans:
         scan_name = scan_id.replace("/", "_")
@@ -150,7 +152,8 @@ def run(opts: Options, model=None):
         if opts.run_fusion:
             final_tsdf = common.finalize_tsdf(opts, final_tsdf)
             final_tsdf.save(os.path.join(meshes_dir, f"{scan_name}_tsdf.npz"))
+            meshes[scan_name] = common.export_scan_mesh(final_tsdf, meshes_dir, scan_name)
 
     common.write_scores(scores_dir, all_frame_avg, scene_avg)
     return {"frame_avg": all_frame_avg.final_metrics, "scene_avg": scene_avg.final_metrics,
-            "frames": frames, "pass_time": pass_time}
+            "frames": frames, "pass_time": pass_time, "meshes": meshes}

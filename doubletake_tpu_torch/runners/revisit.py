@@ -9,8 +9,8 @@ their poses mapped into the first visit's world frame by
 ``first_T_second @ world_T_cam`` for the raycast only (:225-240): the model
 still sees the rescan's own poses. The first visit's hint volume is saved
 as ``*_hint_tsdf.npz``, as the offline runner saves its pass-1 volume. The
-rescan's depths are fused when ``run_fusion`` is set; mesh export is not
-ported yet.
+rescan's depths are fused when ``run_fusion`` is set, and the volume saved
+with its mesh (``<scan>.ply``) after the rescan's timed window.
 
 Dataset hook: ``revisit_source_scan(scan_id) -> (first_scan_id,
 first_T_second_44)``. The 3RScan reader parses 3RScan.json; the synthetic
@@ -41,9 +41,9 @@ from doubletake_tpu_torch.utils.metrics import ResultsAverager
 
 def run(opts: Options, model=None):
     """Run the revisit evaluation; returns the frame and scene averages, the
-    rescan frames run, and the wall times of the first visits' hint passes
-    and of the rescan loops (from each one's start to its last sync, loader
-    waits included).
+    rescan frames run, the wall times of the first visits' hint passes and
+    of the rescan loops (from each one's start to its last sync, loader
+    waits included) and, with fusion, each rescan's mesh export (``meshes``).
 
     ``model``: an already built and weighted model (else built from opts and
     initialised or loaded by ``common.init_or_load_params``).
@@ -65,7 +65,7 @@ def run(opts: Options, model=None):
 
     all_frame_avg = ResultsAverager(opts.name, "frame avg")
     scene_avg = ResultsAverager(opts.name, "scene avg")
-    frames, pass_time = 0, {"first_visit": 0.0, "rescan": 0.0}
+    frames, pass_time, meshes = 0, {"first_visit": 0.0, "rescan": 0.0}, {}
 
     for scan_id in scans:
         scan_name = scan_id.replace("/", "_")
@@ -111,10 +111,11 @@ def run(opts: Options, model=None):
         if opts.run_fusion:
             tsdf = common.finalize_tsdf(opts, tsdf)
             tsdf.save(os.path.join(meshes_dir, f"{scan_name}_tsdf.npz"))
+            meshes[scan_name] = common.export_scan_mesh(tsdf, meshes_dir, scan_name)
         scan_metrics.compute_final_average()
         scan_metrics.output_json(os.path.join(scores_dir, f"{scan_name}_metrics.json"))
         scene_avg.update_results(scan_metrics.final_metrics)
 
     common.write_scores(scores_dir, all_frame_avg, scene_avg)
     return {"frame_avg": all_frame_avg.final_metrics, "scene_avg": scene_avg.final_metrics,
-            "frames": frames, "pass_time": pass_time}
+            "frames": frames, "pass_time": pass_time, "meshes": meshes}

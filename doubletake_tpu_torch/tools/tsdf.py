@@ -4,15 +4,20 @@ Counterpart of ``doubletake_tpu.tools.tsdf`` (reference scene state:
 src/doubletake/tools/tsdf.py):
 
   * ``TSDF`` — a dense, bounded (X, Y, Z) values/weights pair (values init
-    -1, weights 0) with its world-space origin and voxel size; ``save`` and
-    ``load`` use the JAX package's npz format, so volumes pass between the
-    two packages.
+    -1, weights 0) with its world-space origin and voxel size, and optional
+    (X, Y, Z, 3) float16 colours in [0, 1] (the reference's Open3D colour
+    fusers, fusers_helper.py:110-211); ``save`` and ``load`` use the JAX
+    package's npz format, so volumes pass between the two packages.
   * ``integrate_depth`` — TSDFFuser.integrate_depth math (tsdf.py:414-558):
     nearest depth sampling, InfiniTAM confidence, truncation 3 voxels (1.5x
     extended negative truncation optional), update_rate 2.5 / max weight
     100, weights clamped to 1. It runs ``ops.integrate.fused_integrate``:
     the CUDA kernel for a CUDA volume, the dense plain version on the CPU,
     and updates the volume IN PLACE (the JAX runner donates the volume).
+    A coloured volume given an image takes, as in the JAX package (its XLA
+    path, never Pallas), a dense plain-torch pass on the volume's device
+    that also fuses the colours; its values and weights come out of
+    ``ops.integrate.voxel_update_plain``, the kernel's plain version.
   * ``raycast`` — the hint renderer: a dense coarse-then-fine march along
     camera z to the first observed + -> - zero crossing, linear
     refinement, and the trilinear fusion weight at the surface, for one
@@ -27,11 +32,12 @@ src/doubletake/tools/tsdf.py):
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from doubletake_tpu_torch.ops.integrate import fused_integrate
+from doubletake_tpu_torch.ops.integrate import fused_integrate, voxel_update_plain
 from doubletake_tpu_torch.utils.geometry import linspace01
 
 VOX_MOD = 8  # volume dims rounded up to multiples of 8 (tsdf.py:59)
@@ -40,51 +46,58 @@ VOX_MOD = 8  # volume dims rounded up to multiples of 8 (tsdf.py:59)
 @dataclasses.dataclass
 class TSDF:
     """Dense TSDF volume. values/weights: (X, Y, Z) float32; origin: (3,)
-    world min corner."""
+    world min corner; colors: (X, Y, Z, 3) float16 in [0, 1], or None."""
 
     values: torch.Tensor
     weights: torch.Tensor
     origin: torch.Tensor
     voxel_size: float
+    colors: Optional[torch.Tensor] = None
 
     @property
     def dims(self):
         return tuple(self.values.shape)
 
     @classmethod
-    def from_bounds(cls, bounds: dict, voxel_size: float, device="cpu"):
-        """Create a volume covering bounds (tsdf.py:122-154)."""
+    def from_bounds(cls, bounds: dict, voxel_size: float, device="cpu",
+                    with_color: bool = False):
+        """Create a volume covering bounds (tsdf.py:122-154), with zero
+        colours if ``with_color``."""
         dims = []
         for axis in ("x", "y", "z"):
             extent = bounds[f"{axis}max"] - bounds[f"{axis}min"]
             dims.append(int(np.ceil(extent / voxel_size / VOX_MOD)) * VOX_MOD)
         origin = torch.tensor([bounds["xmin"], bounds["ymin"], bounds["zmin"]],
                               dtype=torch.float32, device=device)
+        colors = (torch.zeros(dims + [3], dtype=torch.float16, device=device)
+                  if with_color else None)
         return cls(values=-torch.ones(dims, dtype=torch.float32, device=device),
                    weights=torch.zeros(dims, dtype=torch.float32, device=device),
-                   origin=origin, voxel_size=voxel_size)
+                   origin=origin, voxel_size=voxel_size, colors=colors)
 
     def save(self, path: str):
-        """npz with float16 tsdf_values / tsdf_weights, float32 origin and
-        the voxel size — the JAX package's format."""
-        np.savez_compressed(
-            path,
+        """npz with float16 tsdf_values / tsdf_weights (and tsdf_colors),
+        float32 origin and the voxel size — the JAX package's format."""
+        arrays = dict(
             tsdf_values=self.values.detach().cpu().numpy().astype(np.float16),
             tsdf_weights=self.weights.detach().cpu().numpy().astype(np.float16),
             origin=self.origin.detach().cpu().numpy().astype(np.float32),
             voxel_size=self.voxel_size,
         )
+        if self.colors is not None:
+            arrays["tsdf_colors"] = self.colors.detach().cpu().numpy().astype(np.float16)
+        np.savez_compressed(path, **arrays)
 
     @classmethod
     def load(cls, path: str, device="cpu"):
         data = np.load(path)
-        if "tsdf_colors" in data:
-            raise ValueError(f"{path}: color volumes are not ported yet")
         return cls(
             values=torch.as_tensor(data["tsdf_values"].astype(np.float32), device=device),
             weights=torch.as_tensor(data["tsdf_weights"].astype(np.float32), device=device),
             origin=torch.as_tensor(data["origin"].astype(np.float32), device=device),
             voxel_size=float(data["voxel_size"]),
+            colors=(torch.as_tensor(data["tsdf_colors"].astype(np.float16), device=device)
+                    if "tsdf_colors" in data else None),
         )
 
 
@@ -101,19 +114,37 @@ class FusionConfig:
 
 
 def integrate_depth(tsdf: TSDF, depth_hw1, cam_T_world_44, K_44, config: FusionConfig,
-                    depth_mask_hw1=None) -> TSDF:
-    """Fuse one depth map into ``tsdf`` in place and return it."""
+                    depth_mask_hw1=None, image_hw3=None) -> TSDF:
+    """Fuse one depth map into ``tsdf`` in place and return it.
+
+    With colours in the volume and an (H, W, 3) image in [0, 1] at the
+    depth's size, the colours are fused too (the JAX ``_voxel_update``,
+    tsdf.py:203-221): the voxel's nearest pixel, the same validity, a
+    running mean weighted by the old and the frame's weights, stored as
+    float16. That pass is dense plain torch (the JAX package's XLA path);
+    every other volume takes K2."""
     truncation = config.truncation_voxels * tsdf.voxel_size
     if depth_mask_hw1 is not None:
         depth_hw1 = torch.where(depth_mask_hw1, depth_hw1, torch.full_like(depth_hw1, -1.0))
     P_34 = torch.matmul(K_44, cam_T_world_44)[:3].contiguous()
-    fused_integrate(
-        tsdf.values, tsdf.weights, depth_hw1[..., 0].contiguous(), P_34, tsdf.origin,
-        voxel_size=tsdf.voxel_size, min_depth=config.min_depth,
-        max_depth=config.max_depth, truncation=truncation,
-        trunc_check=-truncation * (1.5 if config.extended_neg_truncation else 1.0),
-        update_rate=config.update_rate, max_weight=config.max_weight,
-    )
+    kw = dict(voxel_size=tsdf.voxel_size, min_depth=config.min_depth,
+              max_depth=config.max_depth, truncation=truncation,
+              trunc_check=-truncation * (1.5 if config.extended_neg_truncation else 1.0),
+              update_rate=config.update_rate, max_weight=config.max_weight)
+    depth_hw = depth_hw1[..., 0].contiguous()
+    if tsdf.colors is None or image_hw3 is None:
+        fused_integrate(tsdf.values, tsdf.weights, depth_hw, P_34, tsdf.origin, **kw)
+        return tsdf
+
+    old_w = tsdf.weights
+    new_v, new_w, t = voxel_update_plain(tsdf.values, old_w, depth_hw, P_34, tsdf.origin, **kw)
+    rgb = image_hw3.reshape(-1, 3).float()[t["flat"]]               # (X, Y, Z, 3)
+    rgb = torch.where(t["in_img"][..., None], rgb, torch.zeros((), device=rgb.device))
+    old_c = tsdf.colors.float()
+    fused_c = (old_c * old_w[..., None] + rgb * t["new_w"][..., None]) / t["total"][..., None]
+    tsdf.colors = torch.where(t["valid"][..., None], fused_c, old_c).to(tsdf.colors.dtype)
+    tsdf.values.copy_(new_v)
+    tsdf.weights.copy_(new_w)
     return tsdf
 
 

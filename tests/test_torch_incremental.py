@@ -34,6 +34,7 @@ from doubletake_tpu.runners import incremental as jinc
 from doubletake_tpu_torch.checkpoints.convert import variables_to_state_dict
 from doubletake_tpu_torch.options import Options
 from doubletake_tpu_torch.runners import common, incremental, no_hint, offline_two_pass, revisit
+from doubletake_tpu_torch.scripts import create_visibility_volume, mesh_eval
 from doubletake_tpu_torch.tools.tsdf import TSDF
 from doubletake_tpu_torch.training import train_loop
 
@@ -140,6 +141,7 @@ def test_run_end_to_end_on_cpu(tmp_path):
     base = tmp_path / "port_e2e" / "incremental_default"
     assert (base / "scores" / "all_frame_avg_metrics.json").exists()
     assert (base / "meshes" / "synth0_tsdf.npz").exists()
+    assert (base / "meshes" / "synth0.ply").exists() and res["meshes"]["synth0"]["faces"] > 0
 
 
 def test_cuda_is_the_default_device():
@@ -156,17 +158,22 @@ def test_cuda_is_the_default_device():
             runner.run(o)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_loop.train(o)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_visibility_volume.main(["--dataset", "synthetic"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh_eval.main(["--pred_dir", ".", "--gt_dir", "."])
 
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import with jax, flax and
-    doubletake_tpu made unimportable."""
+    doubletake_tpu made unimportable; the mesh extractor loads the port's
+    own build (build/torch_kernels), never the JAX package's native/."""
     code = r"""
 import importlib, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "doubletake_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "doubletake_tpu", "native"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -176,12 +183,23 @@ names = [m.name for m in pkgutil.walk_packages(doubletake_tpu_torch.__path__,
                                               "doubletake_tpu_torch.")]
 assert {"doubletake_tpu_torch.train", "doubletake_tpu_torch.losses",
         "doubletake_tpu_torch.training.train_loop",
-        "doubletake_tpu_torch.training.augmentation"} <= set(names), names
+        "doubletake_tpu_torch.training.augmentation",
+        "doubletake_tpu_torch.tools.marching_cubes", "doubletake_tpu_torch.eval.visibility",
+        "doubletake_tpu_torch.eval.mesh_eval",
+        "doubletake_tpu_torch.scripts.create_visibility_volume",
+        "doubletake_tpu_torch.scripts.mesh_eval"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "doubletake_tpu")]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "doubletake_tpu",
+                                                    "native")]
 assert not bad, bad
+import numpy as np
+from doubletake_tpu_torch.tools.marching_cubes import extract_mesh
+g = np.linspace(-1, 1, 9, dtype=np.float32)
+assert len(extract_mesh(np.sqrt((g[:, None, None] ** 2 + g[:, None] ** 2 + g ** 2)) - 0.5)[1])
+libs = [line.split()[-1] for line in open("/proc/self/maps") if "marching" in line]
+assert libs and all("/build/torch_kernels/libmarching-" in p for p in libs), libs
 print(len(names))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
