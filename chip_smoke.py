@@ -94,6 +94,28 @@ Phases (each one fails the run on error):
      not see every face); the GT mesh against its own samples gives Chamfer
      0 and F-score 1; phase 4's mesh (random weights) against the GT,
      finite, reported.
+  14. the small config (``configs/models/doubletake_small_model.yaml`` set in
+     code: ResNet18D, the skip decoder, the ResNet matching encoder, the hint
+     volume): the incremental path as in phase 4 (33 / 33 launches, the PLY)
+     with phase 5's whole-step parity and a torch.profiler trace of warm
+     frames (device ms a frame, against phase 15's flagship trace); the
+     offline two-pass path as in phase 8 (6 / 66, pass-1 and pass-2 parity);
+     training as in phase 11 (precision 16, b=16, K1 only in validation,
+     then timed steps on one batch).
+  15. ``raycast_mip``: first a trace of warm flagship frames (the dense
+     step); then the flagship's incremental path with the candidate-block
+     mip march for every hint (33 / 33, the PLY), whole-step parity with the
+     plain path on the same march, and its hint ms against phase 4's; then
+     the mip and the dense march on the same volume at the first batch's 16
+     poses: the run's volume (reported) and the scan's GT depths fused
+     through K2, where validity may differ on < 5% of the pixels (the JAX
+     contract, tests/test_tsdf.py:148-176); and one pose's march alone, dense
+     and mip in turns.
+  16. ``split_timing``: the flagship incremental path over the 12-frame
+     synthetic scan with and without it: each frame's depth metrics and the
+     saved volume equal, the split run's host-clock hint / model / fuse times
+     finite; both runs' launches counted.
+  Phases 15 and 16 run right after phase 10, on its model; phase 14 last.
   In phases 7-10 and 12 both kernels must launch as often as the path's batches and
   fused frames imply (counted from the dataset's length and the batch
   size), the metrics must be finite, hint coverage (pass 2, rescan) > 0,
@@ -554,7 +576,10 @@ def flagship_options(out_dir):
     return o
 
 
-def run_main_path(opts):
+def run_main_path(opts, path="main path", model=None):
+    """``runners.incremental.run`` over the scan with both kernels' counts
+    set to 0 just before it; each kernel must launch once a frame. The
+    model is built from ``opts`` with random weights unless given."""
     import torch
 
     from doubletake_tpu_torch.datasets.registry import dataset_from_opts
@@ -562,7 +587,8 @@ def run_main_path(opts):
     from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.runners import common, incremental
 
-    model = common.init_or_load_params(opts, common.build_model(opts))
+    if model is None:
+        model = common.init_or_load_params(opts, common.build_model(opts))
     torch.cuda.reset_peak_memory_stats()   # the main path's peak, not the kernel checks'
     fv.fused_feature_volume.launches = 0
     ig.fused_integrate.launches = 0
@@ -576,13 +602,16 @@ def run_main_path(opts):
     base = os.path.join(opts.output_base_path, opts.name, "incremental_default")
     with open(os.path.join(base, "scores", "synth0_metrics.json")) as f:
         json.load(f)
-    mesh = check_mesh("main path", os.path.join(base, "meshes"), "synth0", res["meshes"]["synth0"])
+    mesh = check_mesh(path, os.path.join(base, "meshes"), "synth0", res["meshes"]["synth0"])
     frames = len(dataset_from_opts(opts, split=opts.split))
     fa = res["frame_avg"]
-    require_finite("main path", fa, ("abs_diff", "abs_rel", "a5", "frame_time", "hint_time",
-                                     "model_time", "fuse_time", "hint_coverage"))
+    require_finite(path, fa, ("abs_diff", "abs_rel", "a5", "frame_time", "hint_time",
+                              "model_time", "fuse_time", "hint_coverage"))
     if res["frames"] != frames:
-        raise RuntimeError(f"main path: {res['frames']} of {frames} frames ran")
+        raise RuntimeError(f"{path}: {res['frames']} of {frames} frames ran")
+    for name, n in launches.items():
+        if n != frames:
+            raise RuntimeError(f"{path}: {name} launched {n} times over {frames} frames")
     summary = {
         "frames": frames, "wall_s": wall, "launches": launches,
         # frames over the scan loop's wall time, loop start to last sync:
@@ -598,7 +627,7 @@ def run_main_path(opts):
                          if torch.cuda.is_available() else None),
         "mesh": mesh,
     }
-    log(f"main path: {frames} frames, {summary['maps_per_s']:.2f} maps/s over the scan loop, "
+    log(f"{path}: {frames} frames, {summary['maps_per_s']:.2f} maps/s over the scan loop, "
         f"{summary['step_maps_per_s']:.2f} maps/s by mean step "
         f"(frame {summary['frame_ms']:.1f} ms; device hint {summary['hint_ms']:.2f} / "
         f"model {summary['model_ms']:.2f} / fuse {summary['fuse_ms']:.2f} ms), "
@@ -634,14 +663,15 @@ def whole_step_parity(opts, model):
         cur, src = common.device_batch(cur_np, src_np, device)
         out_k, _, vol_k = step(vol_k, cur, src)
         with torch.no_grad():
-            hint = common.render_hint(vol_p, cur, *hint_hw(opts), samples, opts.fusion_max_depth)
+            hint = common.render_hint(vol_p, cur, *hint_hw(opts), samples, opts.fusion_max_depth,
+                                      use_mip=opts.raycast_mip)
             out_p = plain_model(cur, src, hint=hint, return_mask=True)
             P = torch.matmul(cur["K_s0_b44"][0], cur["cam_T_world_b44"][0])[:3].contiguous()
             vol_p.values, vol_p.weights = integrate_plain(
                 vol_p.values, vol_p.weights, out_p["depth_pred_s0_bhw1"][0, ..., 0].contiguous(),
                 P, vol_p.origin, **kw)
         gt = torch.as_tensor(cur_np["full_res_depth_bhw1"]).to(device)
-        rows.append(batch_parity(f"incremental frame {i}", out_k, out_p, gt))
+        rows.append(batch_parity(f"{opts.name} frame {i}", out_k, out_p, gt))
     return rows
 
 
@@ -688,8 +718,8 @@ def profile_calls(name, calls, frames_per_call=1):
     return summary
 
 
-def profile_main_step(opts, model, warm=2, frames=3):
-    """``profile_calls`` over a few warm frames of the main step."""
+def profile_main_step(opts, model, warm=2, frames=3, name="incremental"):
+    """``profile_calls`` over a few warm frames of the incremental step."""
     import torch
 
     from doubletake_tpu_torch.data.loader import DataLoader
@@ -709,7 +739,7 @@ def profile_main_step(opts, model, warm=2, frames=3):
                                  opts)
     for cur, src in batches[:warm]:
         step(vol, cur, src)
-    return profile_calls("incremental", [lambda b=b: step(vol, *b) for b in batches[warm:]])
+    return profile_calls(name, [lambda b=b: step(vol, *b) for b in batches[warm:]])
 
 
 # ------------------------------------------------------- the other paths
@@ -872,14 +902,17 @@ def run_no_hint_path(out_dir, batch_np):
     return summary, model
 
 
-def run_offline_path(out_dir, model, batch_np, profile=False):
+def run_offline_path(out_dir, model, batch_np, profile=False, opts=None, path="offline"):
+    """The offline two-pass path (the flagship's unless ``opts``): the run,
+    pass-1 and pass-2 parity, and for the flagship the batched raycast."""
     import torch
 
     from doubletake_tpu_torch.datasets.registry import dataset_from_opts
     from doubletake_tpu_torch.runners import common, offline_two_pass
     from doubletake_tpu_torch.tools.tsdf import TSDF, prepare_static, raycast
 
-    opts = throughput_options(out_dir, "chip_smoke_offline")
+    flagship = opts is None
+    opts = opts or throughput_options(out_dir, "chip_smoke_offline")
     device = torch.device(opts.device)
     frames = len(dataset_from_opts(opts, split=opts.split))
     batches = -(-frames // BATCH)
@@ -893,13 +926,13 @@ def run_offline_path(out_dir, model, batch_np, profile=False):
     # pass 1's parity check first: the timed run then starts warm at b=16
     with torch.no_grad():
         parity_pass1 = batch_parity(
-            "offline pass 1 batch 0", model(cur, src, hint=hint, return_mask=True),
+            f"{path} pass 1 batch 0", model(cur, src, hint=hint, return_mask=True),
             plain(cur, src, hint=hint, return_mask=True), gt)
-    res, summary = drive("offline", offline_two_pass.run, opts, model, expected)
+    res, summary = drive(path, offline_two_pass.run, opts, model, expected)
     fa = res["frame_avg"]
-    require_finite("offline", fa, ("abs_diff", "abs_rel", "a5", "frame_time", "hint_coverage"))
+    require_finite(path, fa, ("abs_diff", "abs_rel", "a5", "frame_time", "hint_coverage"))
     if res["frames"] != frames or not fa["hint_coverage"] > 0:
-        raise RuntimeError(f"offline: {res['frames']} of {frames} frames, "
+        raise RuntimeError(f"{path}: {res['frames']} of {frames} frames, "
                            f"hint coverage {fa['hint_coverage']}")
     pt = res["pass_time"]
     summary.update({
@@ -909,7 +942,7 @@ def run_offline_path(out_dir, model, batch_np, profile=False):
         "parity_pass1": parity_pass1,
     })
     meshes_dir = os.path.join(out_dir, opts.name, "offline_two_pass_default", "meshes")
-    summary["mesh"] = check_mesh("offline", meshes_dir, "synth0", res["meshes"]["synth0"])
+    summary["mesh"] = check_mesh(path, meshes_dir, "synth0", res["meshes"]["synth0"])
 
     hint_path = os.path.join(meshes_dir, "synth0_hint_tsdf.npz")
     loaded = TSDF.load(hint_path, device=device)
@@ -918,12 +951,19 @@ def run_offline_path(out_dir, model, batch_np, profile=False):
     steps = [offline_two_pass.make_pass2_step(m, *hint_hw(opts), samples,
                                               offline_two_pass.HINT_MAX_DEPTH)
              for m in (model, plain)]
-    summary["parity_pass2"] = batch_parity("offline pass 2 batch 0", steps[0](static, cur, src)[0],
+    summary["parity_pass2"] = batch_parity(f"{path} pass 2 batch 0", steps[0](static, cur, src)[0],
                                            steps[1](static, cur, src)[0], gt)
     if profile:
         summary["profile_pass2"] = profile_calls(
             "offline_pass2", [lambda: steps[0](static, cur, src)] * 3, BATCH)
     del plain, steps
+    if not flagship:
+        log(f"{path}: {frames} frames, pass 1 {summary['pass1_maps_per_s']:.2f} / pass 2 "
+            f"{summary['pass2_maps_per_s']:.2f} maps/s over the loops, "
+            f"{summary['step_maps_per_s']:.2f} by mean pass-2 step, hint coverage "
+            f"{fa['hint_coverage']:.3f}, peak {summary['peak_mem_gib']:.2f} GiB, "
+            f"launches {summary['launches']}")
+        return summary
 
     # the batched raycast alone: one march over the batch's 16 poses, of the
     # volume as loaded (bf16 rounding at each corner read) and of its
@@ -1163,8 +1203,11 @@ def train_options(out_dir):
     return o
 
 
-def run_train_path(out_dir):
-    """Phase 11: train() for a few steps, then timed steps on a fixed batch."""
+def run_train_path(out_dir, opts=None, path="train"):
+    """train() for a few steps, then timed steps on a fixed batch: the
+    flagship's (phase 11) unless ``opts``."""
+    import copy
+
     import torch
 
     from doubletake_tpu_torch.data.loader import DataLoader
@@ -1174,7 +1217,7 @@ def run_train_path(out_dir):
     from doubletake_tpu_torch.runners import common
     from doubletake_tpu_torch.training import train_loop as tl
 
-    opts = train_options(out_dir)
+    opts = opts or train_options(out_dir)
     device = torch.device(opts.device)
     val_sets = 4   # fill_depth_hints: hint-aug 0.5 / 1.0 / 0.0 / 0.0
     counts = {}
@@ -1203,23 +1246,23 @@ def run_train_path(out_dir):
     losses = res["losses"]
     if res["step"] != TRAIN_STEPS or not all(v == v and abs(v) != float("inf")
                                              for v in losses.values()):
-        raise RuntimeError(f"train: step {res['step']}, losses {losses}")
+        raise RuntimeError(f"{path}: step {res['step']}, losses {losses}")
     if counts != {"in_train_steps": 0, "in_validation": val_sets} or launches != {
             "fused_volume": val_sets, "integrate": 0}:
-        raise RuntimeError(f"train: K1 launches {counts}, all launches {launches}; expected 0 "
+        raise RuntimeError(f"{path}: K1 launches {counts}, all launches {launches}; expected 0 "
                            f"in the train steps and {val_sets} in the validation")
     log_dir = os.path.join(opts.log_dir, opts.name)
     for rel in ("options.yaml", "code/doubletake_tpu_torch", "checkpoints", "best",
                 "final_weights.ckpt"):
         if not os.path.exists(os.path.join(log_dir, rel)):
-            raise RuntimeError(f"train: {rel} was not written")
-    load_opts = flagship_options(out_dir)
+            raise RuntimeError(f"{path}: {rel} was not written")
+    load_opts = copy.copy(opts)
     load_opts.load_weights_from_checkpoint = res["final_weights"]
     loaded = common.init_or_load_params(load_opts, common.build_model(load_opts)).state_dict()
     trained = res["model"].state_dict()
     if sorted(loaded) != sorted(trained) or not all(torch.equal(loaded[k], trained[k])
                                                     for k in trained):
-        raise RuntimeError("train: the final .ckpt does not load the trained weights")
+        raise RuntimeError(f"{path}: the final .ckpt does not load the trained weights")
     summary = {"wall_s": wall, "steps": res["step"], "losses": losses, "launches": launches,
                "k1_launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     del res, loaded, trained
@@ -1249,8 +1292,8 @@ def run_train_path(out_dir):
                     "step_ms_all": [t * 1e3 for t in times], "samples_per_s": BATCH / warm,
                     "step_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     if not (all(v == v for v in curve) and min(curve[1:]) < curve[0]):
-        raise RuntimeError(f"train: the loss on a fixed batch did not fall: {curve}")
-    log(f"train: {summary['steps']} steps in {wall:.1f} s, losses {losses['loss']:.4f}, K1 "
+        raise RuntimeError(f"{path}: the loss on a fixed batch did not fall: {curve}")
+    log(f"{path}: {summary['steps']} steps in {wall:.1f} s, losses {losses['loss']:.4f}, K1 "
         f"launches {counts}, peak {summary['peak_mem_gib']:.2f} GiB; fixed batch: "
         f"{summary['step_ms']:.1f} ms a step ({summary['samples_per_s']:.1f} samples/s), peak "
         f"{summary['step_peak_mem_gib']:.2f} GiB, loss {[round(v, 4) for v in curve]}")
@@ -1479,6 +1522,173 @@ def run_mesh_truth_path(out_dir, main_mesh_path):
     return summary
 
 
+# ------------------------------------- the small config, raycast_mip, split_timing
+
+
+def as_small(o, name):
+    """configs/models/doubletake_small_model.yaml's model on options ``o``,
+    set in code (yaml may be missing on the card): it differs from the
+    flagship's only in the image encoder and the decoder."""
+    o.name = name
+    o.image_encoder_name = "resnet18d"
+    o.depth_decoder_name = "skip"
+    return o
+
+
+def run_small_config(out_dir, batch_np):
+    """Phase 14: the small config on the incremental path (whole-step
+    parity, device time per frame), offline two-pass at b=16 and train() at
+    precision 16."""
+    opts = as_small(flagship_options(out_dir), "chip_smoke_small")
+    model, summary = run_main_path(opts, "small incremental")
+    summary["parity"] = whole_step_parity(opts, model)
+    summary["profile"] = profile_main_step(opts, model, name="incremental_small")
+    offline = run_offline_path(out_dir, model, batch_np, path="small offline", opts=as_small(
+        throughput_options(out_dir, ""), "chip_smoke_small_offline"))
+    del model
+    train = run_train_path(out_dir, as_small(train_options(out_dir), "chip_smoke_small_train"),
+                           path="small train")
+    return {"small_incremental": summary, "small_offline_two_pass": offline,
+            "small_train": train}
+
+
+def run_mip_path(out_dir, model, main_summary, batch_np):
+    """Phase 15: the flagship's incremental path with ``raycast_mip``; then
+    the mip march against the dense march on the run's final volume. First
+    the flagship's dense step is profiled, for phase 14's device time per
+    frame against the small config's in the same call."""
+    import torch
+
+    from doubletake_tpu_torch.runners import common
+    from doubletake_tpu_torch.tools.tsdf import TSDF, raycast
+
+    opts = flagship_options(out_dir)
+    profile = profile_main_step(opts, model, name="incremental_flagship")
+    opts.name, opts.raycast_mip = "chip_smoke_mip", True
+    _, summary = run_main_path(opts, "mip incremental", model=model)
+    summary["profile_flagship_dense"] = profile
+    summary["parity"] = whole_step_parity(opts, model)
+    summary["dense_hint_ms"] = main_summary["hint_ms"]
+
+    # the two marches on the same volume and poses (the first batch's 16,
+    # at the hint's size): the run's final volume (random weights: noisy,
+    # many false candidates), and the scan's GT depths fused through K2, the
+    # kind of volume the JAX contract describes (a sliver under 5%,
+    # tests/test_tsdf.py:148-176); only the latter is gated
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.tools.tsdf import integrate_depth
+
+    device = torch.device(opts.device)
+    cur, _ = common.device_batch(*batch_np, device)
+    run_vol = TSDF.load(os.path.join(out_dir, opts.name, "incremental_default", "meshes",
+                                     "synth0_tsdf.npz"), device=device)
+    ds = dataset_from_opts(opts, split=opts.split, limit_to_scan_id="synth0")
+    gt_vol, cfg = common.make_fuser(opts, ds, "synth0", device)
+    for depth, cam_T_world, K, _ in gt_frames(ds, device):
+        integrate_depth(gt_vol, depth, cam_T_world, K, cfg)
+    samples = common.resolve_raycast_samples(opts, run_vol.voxel_size, opts.fusion_max_depth)
+    kw = dict(min_depth=common.EVAL_MIN_DEPTH, max_depth=opts.fusion_max_depth,
+              num_samples=samples)
+
+    def vs_dense(vol):
+        with torch.no_grad():
+            dense = raycast(vol, cur["world_T_cam_b44"], cur["invK_s0_b44"], *hint_hw(opts),
+                            **kw)
+            mip = raycast(vol, cur["world_T_cam_b44"], cur["invK_s0_b44"], *hint_hw(opts),
+                          use_mip=True, **kw)
+        both = dense[2] & mip[2]
+        diff = (dense[0] - mip[0]).abs()[both]
+        return {"dense_valid": float(dense[2].float().mean()),
+                "mip_valid": float(mip[2].float().mean()),
+                "validity_differs_share": float((dense[2] != mip[2]).float().mean()),
+                "both_valid_depth_differs_share": float((diff > 0).float().mean()),
+                "both_valid_max_depth_diff_m": float(diff.max()) if diff.numel() else 0.0}
+
+    summary["vs_dense"] = {"poses": int(cur["world_T_cam_b44"].shape[0]), "samples": samples,
+                           "run_volume": vs_dense(run_vol), "gt_volume": vs_dense(gt_vol)}
+
+    # one pose's march alone, dense and mip in turns (b=1, the step's)
+    def one(vol, use_mip):
+        return lambda: raycast(vol, cur["world_T_cam_b44"][:1], cur["invK_s0_b44"][:1],
+                               *hint_hw(opts), use_mip=use_mip, **kw)
+
+    times = {"dense": [], "mip": []}
+    with torch.no_grad():
+        for which in ("dense", "mip", "mip", "dense"):
+            times[which].append(median_ms(one(run_vol, which == "mip"), reps=10, warmup=2))
+    summary["raycast_b1_ms"] = times
+    log(f"mip incremental: hint {summary['hint_ms']:.2f} ms a frame against the dense march's "
+        f"{summary['dense_hint_ms']:.2f} ms (phase 4); the run volume's raycast alone (b=1) "
+        f"{times['mip']} ms against {times['dense']} ms")
+    for name, vd in summary["vs_dense"].items():
+        if isinstance(vd, dict):
+            log(f"  mip vs dense on the {name.replace('_', ' ')} at "
+                f"{summary['vs_dense']['poses']} poses: validity differs on "
+                f"{vd['validity_differs_share']:.4f} of the pixels (dense {vd['dense_valid']:.3f}, "
+                f"mip {vd['mip_valid']:.3f}); depths differ on "
+                f"{vd['both_valid_depth_differs_share']:.5f} of those valid in both, by at most "
+                f"{vd['both_valid_max_depth_diff_m']:.3e} m")
+    gt = summary["vs_dense"]["gt_volume"]
+    if not (gt["validity_differs_share"] < 0.05 and gt["dense_valid"] > 0.1):
+        raise RuntimeError(f"mip incremental: the mip march against the dense on GT depths: {gt}")
+    return summary
+
+
+def run_split_timing(out_dir, model):
+    """Phase 16: a short incremental run (the 12-frame synthetic scan) with
+    and without ``split_timing``: each frame's depth metrics and the saved
+    volume equal, the split run's host-clock stage times finite."""
+    import numpy as np
+
+    from doubletake_tpu_torch.datasets import registry
+    from doubletake_tpu_torch.runners import incremental
+
+    def short_dataset(*a, **k):
+        return registry.dataset_from_opts(*a, num_frames=12, **k)
+
+    runs = {}
+    dataset_from_opts = incremental.dataset_from_opts
+    incremental.dataset_from_opts = short_dataset
+    try:
+        for split in (False, True):
+            opts = flagship_options(out_dir)
+            opts.name, opts.split_timing = f"chip_smoke_split_{split}", split
+            frames = len(short_dataset(opts, split=opts.split))
+            res, summary = drive(f"split_timing={split}", incremental.run, opts, model,
+                                 {"fused_volume": frames, "integrate": frames})
+            with np.load(os.path.join(out_dir, opts.name, "incremental_default", "meshes",
+                                      "synth0_tsdf.npz")) as f:
+                volume = (f["tsdf_values"], f["tsdf_weights"])
+            runs[split] = (res, summary, volume)
+    finally:
+        incremental.dataset_from_opts = dataset_from_opts
+    (fused, fused_summary, fused_vol), (split, summary, split_vol) = runs[False], runs[True]
+
+    def depth_metrics(row):
+        return {k: v for k, v in row.items() if not k.endswith("_time")}
+
+    rows = split["frame_rows"]
+    equal = (len(rows) == len(fused["frame_rows"]) == split["frames"] > 0
+             and all(depth_metrics(a) == depth_metrics(b)
+                     for a, b in zip(rows, fused["frame_rows"]))
+             and all(np.array_equal(a, b) for a, b in zip(split_vol, fused_vol)))
+    finite = all(np.isfinite(r[k]) and r[k] > 0 for r in rows
+                 for k in ("hint_time", "model_time", "fuse_time"))
+    ms = {k: [r[f"{k}_time"] * 1e3 for r in rows] for k in ("hint", "model", "fuse")}
+    fused_ms = {k: [r[f"{k}_time"] * 1e3 for r in fused["frame_rows"]]
+                for k in ("hint", "model", "fuse")}
+    summary.update({"frames": split["frames"], "host_ms": ms, "fused_event_ms": fused_ms,
+                    "fused_launches": fused_summary["launches"], "equal": equal})
+    log(f"split_timing: {split['frames']} frames, depths and volume equal to the fused run's "
+        f"{equal}; host-clock hint / model / fuse ms a frame (median) "
+        + " / ".join(f"{sorted(v)[len(v) // 2]:.2f}" for v in ms.values())
+        + "; the fused run's CUDA events " + " / ".join(
+            f"{sorted(v)[len(v) // 2]:.2f}" for v in fused_ms.values()))
+    if not (equal and finite):
+        raise RuntimeError(f"split_timing: equal {equal}, finite times {finite}")
+    return summary
+
+
 # -------------------------------------------------------------- kernel line
 
 
@@ -1631,10 +1841,6 @@ def main(argv):
             opts = flagship_options(tmp)
             model, main_summary = run_main_path(opts)
             results["main_path"] = main_summary
-            for name, n in main_summary["launches"].items():
-                if n != main_summary["frames"]:
-                    raise RuntimeError(f"main path: {name} launched {n} times over "
-                                       f"{main_summary['frames']} frames")
             results["parity"] = whole_step_parity(opts, model)
             if "--profile" in argv:
                 results["profile"] = profile_main_step(opts, model)
@@ -1645,12 +1851,15 @@ def main(argv):
                                                          "--profile" in argv)
             paths["revisit"] = run_revisit_path(tmp, model)
             paths["offline_bf16"] = run_offline_bf16_path(tmp, model, batch_np)
+            paths["raycast_mip"] = run_mip_path(tmp, model, main_summary, batch_np)
+            paths["split_timing"] = run_split_timing(tmp, model)
             del model
             paths["train"] = run_train_path(tmp)
             paths["color_no_hint"] = run_color_path(tmp, no_hint_model)
             del no_hint_model
             paths["mesh_truth"] = run_mesh_truth_path(tmp, os.path.join(
                 opts.output_base_path, opts.name, "incremental_default", "meshes", "synth0.ply"))
+            paths.update(run_small_config(tmp, batch_np))
             results["paths"] = paths
             kernels = time_kernels(k1, k1_bf16, k2, main_summary["launches"],
                                    paths["offline_bf16"]["launches"]["fused_volume"])

@@ -15,6 +15,7 @@ scale/bias + running stats -> weight/bias/running_mean/running_var.
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -97,6 +98,49 @@ def _effnetv2(w: _Writer):
             w.bn(src + ("bn3",), f"{dst}.bn3")
 
 
+def _bn_basic_block(w: _Writer, path, key):
+    """BN BasicBlock; the resnet-d shortcut as ``downsample.{1,2}``."""
+    node = w._node(w.params, path)
+    for name in ("conv1", "conv2"):
+        w.conv(path + (name,), f"{key}.{name}")
+    for name in ("bn1", "bn2"):
+        w.bn(path + (name,), f"{key}.{name}")
+    if "downsample_conv" in node:
+        w.conv(path + ("downsample_conv",), f"{key}.downsample.1")
+        w.bn(path + ("downsample_bn",), f"{key}.downsample.2")
+
+
+def _resnet18d(w: _Writer):
+    p = ("encoder",)
+    for src, dst in (("conv1_0", "conv1.0"), ("conv1_1", "conv1.3"), ("conv1_2", "conv1.6")):
+        w.conv(p + (src,), f"encoder.{dst}")
+    for src, dst in (("bn1_0", "conv1.1"), ("bn1_1", "conv1.4"), ("bn1", "bn1")):
+        w.bn(p + (src,), f"encoder.{dst}")
+    for li in range(1, 5):
+        for bi in range(2):
+            _bn_basic_block(w, p + (f"layer{li}_{bi}",), f"encoder.layer{li}.{bi}")
+
+
+def _unet_matching_encoder(w: _Writer):
+    p, m = ("matching_model", "encoder"), "matching_model.encoder"
+    w.conv(p + ("conv_stem",), f"{m}.conv_stem")
+    w.bn(p + ("bn1",), f"{m}.bn1")
+    for name, node in w.params["matching_model"]["encoder"].items():
+        if not name.startswith("blocks_"):
+            continue
+        _, si, bi = name.split("_")
+        convs = ("conv_dw", "conv_pw") if "conv_pwl" not in node else (
+            "conv_pw", "conv_dw", "conv_pwl")
+        for ci, conv_name in enumerate(convs):
+            w.conv(p + (name, conv_name), f"{m}.blocks.{si}.{bi}.{conv_name}")
+            w.bn(p + (name, f"bn{ci + 1}"), f"{m}.blocks.{si}.{bi}.bn{ci + 1}")
+    for i in range(5):
+        for src, dst in (("inner", "inner_blocks"), ("layer", "layer_blocks")):
+            w.conv(("matching_model", "decoder", f"{src}_{i}"),
+                   f"matching_model.decoder.{dst}.{i}.0")
+    w.conv(("matching_model", "outconv"), "matching_model.outconv.1")
+
+
 def _tiny_encoder(w: _Writer):
     for name in w.params["encoder"]:
         if name.startswith("conv"):
@@ -111,11 +155,7 @@ def _resnet_matching_encoder(w: _Writer):
     w.bn(p + ("bn1",), f"{m}.1")
     w.sd[f"{m}.3.1.filt"] = blurpool_filter(64)
     for bi in range(2):
-        src, dst = p + (f"layer1_{bi}",), f"{m}.4.{bi}"
-        w.conv(src + ("conv1",), f"{dst}.conv1")
-        w.bn(src + ("bn1",), f"{dst}.bn1")
-        w.conv(src + ("conv2",), f"{dst}.conv2")
-        w.bn(src + ("bn2",), f"{dst}.bn2")
+        _bn_basic_block(w, p + (f"layer1_{bi}",), f"{m}.4.{bi}")
     w.conv(p + ("head_conv1",), f"{m}.5")
     w.conv(p + ("head_conv2",), f"{m}.8")
 
@@ -175,8 +215,8 @@ def _skip_decoder(w: _Writer):
 def variables_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` (numpy leaves) -> the port's state_dict.
 
-    Covers every module the port has; a JAX subtree of a module the port
-    does not have yet raises.
+    Covers every module of the JAX package; a subtree it does not recognise
+    raises.
     """
     w = _Writer(variables)
     params = w.params
@@ -184,18 +224,22 @@ def variables_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
     if enc is not None:
         if "conv_stem" in enc:
             _effnetv2(w)
+        elif "conv1_0" in enc:
+            _resnet18d(w)
         elif "conv0" in enc:
             _tiny_encoder(w)
         else:
-            raise ValueError("image encoder not ported yet (resnet18d?)")
+            raise ValueError("image encoder not recognised")
     mm = params.get("matching_model")
     if mm is not None:
         if "head_conv1" in mm:
             _resnet_matching_encoder(w)
+        elif "encoder" in mm:
+            _unet_matching_encoder(w)
         elif "conv0" in mm:
             _tiny_matching_encoder(w)
         else:
-            raise ValueError("matching encoder not ported yet (unet?)")
+            raise ValueError("matching encoder not recognised")
     if "cost_volume" in params:
         _cost_volume(w)
     if "cost_volume_net" in params:
@@ -237,11 +281,20 @@ def lazy_load_state_dict(model: torch.nn.Module, state_dict: Dict[str, torch.Ten
     return sorted(set(own) - set(matching))
 
 
+_OLD_FPN_KEY = re.compile(r"^(matching_model\.decoder\.(?:inner|layer)_blocks\.\d+)\.(weight|bias)$")
+
+
+def _fpn_key(key: str) -> str:
+    """torchvision before 0.13 stored the FPN's convs without the ``.0`` of
+    ``Conv2dNormActivation``: the port's (newer) name for such a key."""
+    return _OLD_FPN_KEY.sub(r"\1.0.\2", key)
+
+
 def load_weights(path: str) -> Dict[str, torch.Tensor]:
     """A state_dict from a reference ``.ckpt``/``.pth`` (loaded as it is) or
     a JAX-package npz (through ``variables_to_state_dict``)."""
     if path.endswith((".ckpt", ".pth")):
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
         sd = ckpt.get("state_dict", ckpt)
-        return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+        return {_fpn_key(k): v for k, v in sd.items() if isinstance(v, torch.Tensor)}
     return variables_to_state_dict(load_npz_variables(path))

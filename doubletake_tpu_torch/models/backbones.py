@@ -7,8 +7,12 @@ Counterparts of ``doubletake_tpu.models.backbones``, with the reference's
     conv/InstanceNorm head: 16-ch matching features at stride 4, stored as
     the reference's ``matching_model.net.{0..9}`` Sequential
     (networks.py:166-186).
+  * ``ResNet18D`` — timm "resnet18d" features_only(5): a deep 3-conv stem
+    and resnet-d blocks (an average-pool shortcut where the stride changes).
   * ``EfficientNetV2S`` — timm "tf_efficientnetv2_s" features_only(5): TF
     SAME padding, BN eps 1e-3, SiLU, fused MBConv early, SE-MBConv later.
+  * ``UNetMatchingEncoder`` (``models/unet_encoder.py``) — the "fpn" /
+    "unet" matching encoder.
   * ``TinyEncoder`` / ``TinyMatchingEncoder`` — the small CI configs.
 
 Every encoder takes and returns NHWC tensors; the layers run NCHW inside.
@@ -20,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from doubletake_tpu_torch.models.layers import (
+    AvgPool,
     BatchNorm2d,
     BlurPool,
     Conv2d,
@@ -29,25 +34,35 @@ from doubletake_tpu_torch.models.layers import (
     conv,
     instance_norm,
     leaky_relu,
+    max_pool,
     silu,
 )
 from doubletake_tpu_torch.ops.resize import to_nchw, to_nhwc
 
 
 class BNBasicBlock(nn.Module):
-    """torchvision ResNet BasicBlock (BN + ReLU), identity shortcut."""
+    """torchvision / timm ResNet BasicBlock (BN + ReLU). Where the stride or
+    the width changes, the shortcut is timm's resnet-d ``downsample``:
+    Sequential(avg-pool over the stride (Identity at stride 1), 1x1 conv,
+    BN), stored as ``downsample.{1,2}``."""
 
-    def __init__(self, planes: int = 64):
+    def __init__(self, inplanes: int = 64, planes: int = 64, stride: int = 1):
         super().__init__()
-        self.conv1 = Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
+        self.downsample = None
+        if inplanes != planes or stride != 1:
+            self.downsample = nn.Sequential(
+                AvgPool(stride, stride) if stride != 1 else nn.Identity(),
+                Conv2d(inplanes, planes, 1, bias=False), BatchNorm2d(planes))
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
-        return F.relu(out + x)
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
 
 
 class ResnetMatchingEncoder(nn.Module):
@@ -72,6 +87,40 @@ class ResnetMatchingEncoder(nn.Module):
 
     def forward(self, x_nhwc):
         return to_nhwc(self.net(to_nchw(x_nhwc)))
+
+
+class ResNet18D(nn.Module):
+    """timm resnet18d features_only(5): the deep stem (three 3x3 convs,
+    ``conv1.{0,3,6}`` with BN ``conv1.{1,4}`` and ``bn1``) at stride 2, a
+    3/2/1 max pool, then ``layer1..4`` of two blocks each, the first block
+    of layers 2-4 at stride 2 with the resnet-d shortcut."""
+
+    feature_channels = (64, 64, 128, 256, 512)
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Sequential(
+            Conv2d(3, 32, 3, 2, 1, bias=False), BatchNorm2d(32), nn.ReLU(),
+            Conv2d(32, 32, 3, 1, 1, bias=False), BatchNorm2d(32), nn.ReLU(),
+            Conv2d(32, 64, 3, 1, 1, bias=False))
+        self.bn1 = BatchNorm2d(64)
+        cin = 64
+        for li, (planes, stride) in enumerate(((64, 1), (128, 2), (256, 2), (512, 2))):
+            setattr(self, f"layer{li + 1}", nn.Sequential(BNBasicBlock(cin, planes, stride),
+                                                          BNBasicBlock(planes, planes)))
+            cin = planes
+
+    def forward_nchw(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        feats = [x]                                            # stride 2
+        x = max_pool(x, 3, 2, 1)
+        for li in range(1, 5):
+            x = getattr(self, f"layer{li}")(x)
+            feats.append(x)
+        return feats
+
+    def forward(self, x_nhwc):
+        return [to_nhwc(f) for f in self.forward_nchw(to_nchw(x_nhwc))]
 
 
 def _bn(c, eps):
@@ -239,14 +288,21 @@ class TinyMatchingEncoder(nn.Module):
 def get_matching_encoder(matching_encoder_type: str, num_ch_out: int = 16) -> nn.Module:
     if matching_encoder_type == "resnet":
         return ResnetMatchingEncoder(num_ch_out)
+    if matching_encoder_type in ("fpn", "unet"):
+        from doubletake_tpu_torch.models.unet_encoder import UNetMatchingEncoder
+
+        return UNetMatchingEncoder(num_ch_out)
     if matching_encoder_type == "tiny":
         return TinyMatchingEncoder(num_ch_out)
-    raise ValueError(f"Matching encoder not ported yet: {matching_encoder_type}")
+    raise ValueError(f"Unrecognized matching encoder: {matching_encoder_type}")
 
 
 def get_image_encoder(name: str) -> nn.Module:
+    """The image-prior encoder; its ``feature_channels`` give the widths."""
     if "efficientnet" in name:
         return EfficientNetV2S()
+    if "resnet18d" in name:
+        return ResNet18D()
     if "tiny" in name:
         return TinyEncoder()
-    raise ValueError(f"Image encoder not ported yet: {name}")
+    raise ValueError(f"Unrecognized image encoder: {name}")

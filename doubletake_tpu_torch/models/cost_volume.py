@@ -1,6 +1,9 @@
 """Plane-sweep feature volumes (torch.nn; NHWC at the interface).
 
 Counterparts of ``doubletake_tpu.models.cost_volume``:
+  * simple dot-product cost volume (reference:
+    src/doubletake/modules/cost_volume.py) — plain torch, as the JAX
+    package has no kernel for it;
   * metadata "feature volume" — per-plane warped features + geometric
     metadata (202 channels at 7 views) reduced by an MLP [202, 128, 128, 1]
     (reference: src/doubletake/modules/feature_volume.py);
@@ -37,6 +40,7 @@ from doubletake_tpu_torch.ops.fused_volume import (
     fused_feature_volume,
     mlp_in_channels,
     volume_geometry,
+    warp_planes,
 )
 from doubletake_tpu_torch.ops.resize import interpolate_nearest
 from doubletake_tpu_torch.utils.geometry import linspace01
@@ -52,6 +56,40 @@ def generate_depth_planes(min_depth: float, max_depth: float, num_planes: int, d
 def _border_mask(px, py, h, w):
     """2-px border validity (reference cost_volume.py:73-94)."""
     return (px > 2) & (px < w - 2) & (py > 2) & (py < h - 2)
+
+
+class CostVolumeDot(nn.Module):
+    """Masked dot-product cost volume summed over views
+    (simple_cost_volume): per plane, each source view's warped features
+    dotted with the current features where its projected depth is
+    positive. No parameters; the hint and the mask are not used (the 4th
+    output is None, as in the JAX package)."""
+
+    def __init__(self, num_depth_bins: int = 64, plane_chunk: int = 16, **_):
+        super().__init__()
+        self.num_depth_bins = num_depth_bins
+        self.plane_chunk = plane_chunk
+
+    def forward(self, cur_feats_bhwc, src_feats_bkhwc, src_cam_T_cur_cam_bk44,
+                cur_cam_T_src_cam_bk44, src_K_bk44, cur_invK_b44, min_depth,
+                max_depth, hint=None, return_mask: bool = False):
+        b, h, w, c = cur_feats_bhwc.shape
+        dtype = cur_feats_bhwc.dtype
+        planes_d = generate_depth_planes(min_depth, max_depth, self.num_depth_bins,
+                                         cur_feats_bhwc.device)
+        P_bk34, rays_b3n, _, _ = volume_geometry(
+            src_K_bk44, src_cam_T_cur_cam_bk44, cur_cam_T_src_cam_bk44, cur_invK_b44, h, w,
+            dtype)
+        cur_n = cur_feats_bhwc.reshape(b, 1, 1, h * w, c).float()
+        chunks = []
+        for s in range(0, self.num_depth_bins, self.plane_chunk):
+            warped, z, _ = warp_planes(src_feats_bkhwc, P_bk34, rays_b3n,
+                                       planes_d[s:s + self.plane_chunk])
+            dot = (warped.float() * cur_n).sum(-1).to(dtype) * (z > 0).to(dtype)
+            chunks.append(dot.sum(1))                                   # (B, Dc, N)
+        volume_bdhw = torch.cat(chunks, 1).reshape(b, -1, h, w)
+        return (volume_bdhw.permute(0, 2, 3, 1), planes_d[volume_bdhw.argmax(1)], planes_d,
+                None)
 
 
 class FeatureVolume(nn.Module):
@@ -132,9 +170,10 @@ class FeatureMeshHintVolume(FeatureVolume):
 
 def get_volume_class(feature_volume_type: str):
     classes = {
+        "simple_cost_volume": CostVolumeDot,
         "mlp_feature_volume": FeatureVolume,
         "mlp_mesh_hint_feature_volume": FeatureMeshHintVolume,
     }
     if feature_volume_type not in classes:
-        raise ValueError(f"Feature volume not ported yet: {feature_volume_type}")
+        raise ValueError(f"Unknown feature volume: {feature_volume_type}")
     return classes[feature_volume_type]

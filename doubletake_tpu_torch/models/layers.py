@@ -8,7 +8,8 @@ Lightning checkpoint loads without renaming:
     MLPs use torch's default slope 0.01 (reference: modules/networks.py:120-135);
   * BlurPool — antialiased_cnns.BlurPool(filt_size=4, stride=2);
   * Conv2dSame — timm's TF-"SAME" conv (asymmetric padding for stride 2);
-  * BatchNorm2d — flax ``BatchNorm`` semantics (below).
+  * BatchNorm2d — flax ``BatchNorm`` semantics (below);
+  * max_pool / avg_pool — the JAX package's pools (ResNet18D).
 
 Slopes differ by module: 0.2 in the conv blocks and encoders, 0.01 in the
 two MLPs.
@@ -241,6 +242,42 @@ class Conv2dSame(Conv2d):
         if x.dtype != w.dtype:
             x, w = promoted(x, w)
         return F.conv2d(x, w, None, self.stride, 0, 1, self.groups)
+
+
+def max_pool(x_nchw, window: int, stride: int, padding: int = 0):
+    """Max pool with -inf padding (the JAX package's ``max_pool``)."""
+    return F.max_pool2d(x_nchw, window, stride, padding)
+
+
+def avg_pool(x_nchw, window: int, stride: int):
+    """Average pool without padding, the window's sum over ``window**2``
+    (the JAX package's ``avg_pool``); on odd sizes the last row and column
+    are dropped, where timm's ``AvgPool2d(ceil_mode=True,
+    count_include_pad=False)`` would average a partial window. Below
+    float32 the window is summed in the input's type, one element at a
+    time in row-major order, as XLA's ``reduce_window`` adds."""
+    if x_nchw.dtype == torch.float32:
+        return F.avg_pool2d(x_nchw, window, stride)
+    h, w = x_nchw.shape[-2:]
+    ho, wo = (h - window) // stride + 1, (w - window) // stride + 1
+    total = None
+    for i in range(window):
+        for j in range(window):
+            piece = x_nchw[..., i:i + (ho - 1) * stride + 1:stride,
+                           j:j + (wo - 1) * stride + 1:stride]
+            total = piece if total is None else total + piece
+    return total / (window * window)
+
+
+class AvgPool(nn.Module):
+    """``avg_pool`` as a module (no parameters), for Sequential layouts."""
+
+    def __init__(self, window: int, stride: int):
+        super().__init__()
+        self.window, self.stride = window, stride
+
+    def forward(self, x_nchw):
+        return avg_pool(x_nchw, self.window, self.stride)
 
 
 def instance_norm(x_nchw, eps: float = 1e-5):

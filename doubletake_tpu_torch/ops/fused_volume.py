@@ -103,6 +103,26 @@ def _mlp(layers, x):
     return x
 
 
+def warp_planes(src_feats_bkhwc, P_bk34, rays_b3n, planes_c):
+    """The source views' features warped onto the current view at the
+    planes ``planes_c`` (the JAX package's ``_warp_chunk``): warped
+    features (B, k, Dc, N, C) in the features' type, the projected depths
+    + 1e-8 (B, k, Dc, N) in float32, and the planes' points in the current
+    camera (B, Dc, 3, N)."""
+    b, k, h, w, c = src_feats_bkhwc.shape
+    dc = planes_c.shape[0]
+    pts = planes_c[None, :, None, None] * rays_b3n[:, None]            # (B, Dc, 3, N)
+    cam = (torch.einsum("bkij,bdjn->bkdin", P_bk34[..., :3], pts)
+           + P_bk34[..., 3][:, :, None, :, None])                      # (B, k, Dc, 3, N)
+    z = cam[:, :, :, 2] + 1e-8
+    scale = torch.where(cam[:, :, :, 2].abs() > 1e-8, 1.0 / z, torch.ones_like(z))
+    gx = 2.0 * (cam[:, :, :, 0] * scale) / w - 1.0
+    gy = 2.0 * (cam[:, :, :, 1] * scale) / h - 1.0
+    grid = torch.stack([gx, gy], -1).reshape(b * k, dc * h, w, 2)
+    warped = grid_sample_2d(src_feats_bkhwc.reshape(b * k, h, w, c), grid)
+    return warped.reshape(b, k, dc, h * w, c), z, pts
+
+
 def volume_metadata(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, centers_bk3,
                     pose_meta_b3k, planes_c):
     """(B, Dc, N, nin) metadata vectors of the planes ``planes_c``, in the
@@ -119,16 +139,7 @@ def volume_metadata(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, centers_b
     dc = planes_c.shape[0]
     dtype = cur_feats_bhwc.dtype
     cur_n = cur_feats_bhwc.reshape(b, n, c)
-    src_flat = src_feats_bkhwc.reshape(b * k, h, w, c)
-    pts = planes_c[None, :, None, None] * rays_b3n[:, None]            # (B, Dc, 3, N)
-    cam = (torch.einsum("bkij,bdjn->bkdin", P_bk34[..., :3], pts)
-           + P_bk34[..., 3][:, :, None, :, None])                      # (B, k, Dc, 3, N)
-    z = cam[:, :, :, 2] + 1e-8
-    scale = torch.where(cam[:, :, :, 2].abs() > 1e-8, 1.0 / z, torch.ones_like(z))
-    gx = 2.0 * (cam[:, :, :, 0] * scale) / w - 1.0
-    gy = 2.0 * (cam[:, :, :, 1] * scale) / h - 1.0
-    grid = torch.stack([gx, gy], -1).reshape(b * k, dc * h, w, 2)
-    warped = grid_sample_2d(src_flat, grid).reshape(b, k, dc, n, c)
+    warped, z, pts = warp_planes(src_feats_bkhwc, P_bk34, rays_b3n, planes_c)
     mask = (z > 0).to(dtype)                                            # (B, k, Dc, N)
     dot = (warped.float() * cur_n[:, None, None].float()).sum(-1).to(dtype) * mask
 

@@ -102,7 +102,7 @@ class Options:
     # visualization
     standard_fps: int = 30
     dump_depth_visualization: bool = False
-    split_timing: bool = False  # separate hint/model dispatches for timing
+    split_timing: bool = False  # incremental: sync after each stage, host-clock times
     viz_render_width: int = 640
     viz_render_height: int = 480
     cam_marker_size: float = 0.7
@@ -123,13 +123,15 @@ class Options:
     plane_chunk: int = 16
     # number of devices for data-parallel training (0 = all visible)
     num_devices: int = 0
-    # compute dtype for the network; the port runs "float32" only so far
+    # compute dtype for the network: "float32" or "bfloat16" (weights and
+    # batch-norm statistics cast to bf16, K1 in its bf16 mode; every runner)
     compute_dtype: str = "float32"
     # hint raycast sample count; 0 = auto (minimal band-safe budget,
     # tools.tsdf.auto_raycast_samples)
     raycast_samples: int = 256
-    # candidate-block mip acceleration for the hint raycast; not ported yet
-    # (the incremental runner raises when it is set)
+    # candidate-block mip march for the hint raycast; read by the
+    # incremental runner only (the offline, revisit and no-hint runners run
+    # as without it, as in the JAX package)
     raycast_mip: bool = False
     # write a profiler trace for train steps [20, 25) into this dir
     profile_dir: Optional[str] = None

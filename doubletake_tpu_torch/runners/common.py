@@ -115,34 +115,37 @@ def maybe_cast(opts: Options, model: torch.nn.Module) -> torch.nn.Module:
 
 def reject_unported(opts: Options):
     """Raise for options whose code the port does not have yet, instead of
-    ignoring them."""
+    ignoring them: ``dump_depth_visualization`` only."""
     if opts.dump_depth_visualization:
         raise ValueError("dump_depth_visualization is not ported yet")
-    if opts.raycast_mip:
-        raise ValueError("raycast_mip is not ported yet")
 
 
 class StageClock:
     """Stage boundaries of one step: CUDA events on a GPU (read after the
-    step's synchronisation, so timing adds no sync), host clock on the CPU."""
+    step's synchronisation, so timing adds no sync), host clock on the CPU.
+    ``synced`` (``split_timing``): each mark first waits for the device and
+    reads the host clock."""
 
-    def __init__(self, device):
+    def __init__(self, device, synced: bool = False):
         self.cuda = torch.device(device).type == "cuda"
+        self.events = self.cuda and not synced
         self.marks = []
 
     def mark(self, name: str):
-        if self.cuda:
+        if self.events:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        self.marks.append((name, time.perf_counter()))
 
     def elapsed_ms(self):
         """{stage: ms} between consecutive marks; call after a synchronize."""
         out = {}
         for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+            out[name] = a.elapsed_time(b) if self.events else (b - a) * 1e3
         return out
 
 
@@ -153,15 +156,16 @@ def empty_hint(b: int, h: int, w: int, device):
             "sampled_weights_bhw1": zero}
 
 
-def render_hint(vol, cur, hint_h, hint_w, raycast_samples, max_depth):
+def render_hint(vol, cur, hint_h, hint_w, raycast_samples, max_depth, use_mip=False):
     """Hint dict for the model, raycast from ``vol`` (a running ``TSDF`` or
     a ``StaticVolume``) at every pose of the batch: cur["world_T_cam_b44"],
     or cur["hint_world_T_cam_b44"] where a runner maps the poses into the
-    volume's world frame. Pixels below weight 0.025 are invalid."""
+    volume's world frame. Pixels below weight 0.025 are invalid.
+    ``use_mip``: the candidate-block march (``raycast_mip``)."""
     pose = cur.get("hint_world_T_cam_b44", cur["world_T_cam_b44"])
     hint_d, hint_wt, hint_v = raycast(
         vol, pose, cur["invK_s0_b44"], hint_h, hint_w, min_depth=EVAL_MIN_DEPTH,
-        max_depth=max_depth, num_samples=raycast_samples)
+        max_depth=max_depth, num_samples=raycast_samples, use_mip=use_mip)
     valid = hint_v & (hint_wt >= HINT_WEIGHT_THRESHOLD)
     return {
         "depth_hint_bhw1": torch.where(valid, hint_d, torch.full_like(hint_d, float("nan")))[..., None],

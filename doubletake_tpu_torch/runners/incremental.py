@@ -11,11 +11,20 @@ all-invalid hint.
 The hint is rendered at image/4 with the depth-resolution intrinsics
 ``invK_s0``, exactly as the JAX runner does, so the two packages agree.
 
+With ``raycast_mip`` the hint takes the candidate-block mip march
+(``tools.tsdf.raycast(use_mip=True)``), as only the JAX incremental runner
+reads that option.
+
 The volume lives on the device for the whole scan and the fuse step updates
 it in place. Each frame's hint / model / fuse times are taken with CUDA
-events on the GPU (host clock on the CPU) and stored with its metrics. After
-the scan loop's timed window the run saves the TSDF npz, its mesh
-(``<scan>.ply``) and the score JSONs.
+events on the GPU (host clock on the CPU) and stored with its metrics. The
+step is three calls (``make_split_steps``) in either case: eager PyTorch has
+no one-dispatch step to split. With ``split_timing`` the device is
+synchronised after each of them and the stages are timed by the host clock,
+as the JAX runner's split steps report ``hint_time`` and ``model_time``;
+the src views' cached matching features are used in both modes, so both
+compute the same depths. After the scan loop's timed window the run saves
+the TSDF npz, its mesh (``<scan>.ply``) and the score JSONs.
 """
 
 from __future__ import annotations
@@ -45,19 +54,19 @@ def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opt
     src view of a sequential scan was the cur frame earlier), so the
     matching encoder runs on one image instead of model_num_views.
     """
+    hint_step, forward_step, fuse_step = make_split_steps(
+        model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opts)
 
-    @torch.no_grad()
     def step(tsdf, cur, src, src_feats=None, clock=None):
         if clock is not None:
             clock.mark("start")
-        hint = common.render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth)
+        hint = hint_step(tsdf, cur)
         if clock is not None:
             clock.mark("hint")
-        out = model(cur, src, hint=hint, return_mask=True, src_matching_feats=src_feats)
+        out = forward_step(cur, src, hint, src_feats)
         if clock is not None:
             clock.mark("model")
-        depth = common.depth_for_fusion(opts, out) if opts is not None else out["depth_pred_s0_bhw1"]
-        integrate_depth(tsdf, depth[0], cur["cam_T_world_b44"][0], cur["K_s0_b44"][0], cfg)
+        fuse_step(tsdf, out, cur)
         if clock is not None:
             clock.mark("fuse")
         return out, hint, tsdf
@@ -67,13 +76,15 @@ def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opt
 
 def make_split_steps(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth,
                      opts=None):
-    """Separate hint / forward / fuse callables, for timing each stage on
-    its own (the reference's model_time / hint_time split,
+    """Separate hint / forward / fuse callables (the JAX runner's split
+    steps, for the reference's model_time / hint_time split,
     test_incremental.py:273-288)."""
+    use_mip = bool(opts is not None and opts.raycast_mip)
 
     @torch.no_grad()
     def hint_step(tsdf, cur):
-        return common.render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth)
+        return common.render_hint(tsdf, cur, hint_h, hint_w, raycast_samples, fusion_max_depth,
+                                  use_mip=use_mip)
 
     @torch.no_grad()
     def forward_step(cur, src, hint, src_feats=None):
@@ -89,8 +100,9 @@ def make_split_steps(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_dep
 
 def run(opts: Options, model=None):
     """Run the incremental evaluation; returns the frame and scene averages,
-    the frames run, the scan loops' wall time and each scan's mesh export
-    (``meshes``: seconds, vertex and face counts).
+    each frame's metrics and stage times (``frame_rows``), the frames run,
+    the scan loops' wall time and each scan's mesh export (``meshes``:
+    seconds, vertex and face counts).
 
     ``model``: an already built and weighted model (else built from opts and
     initialised or loaded by ``common.init_or_load_params``).
@@ -138,7 +150,7 @@ def run(opts: Options, model=None):
             src_feats = None
             if all(i in feat_cache for i in ids):
                 src_feats = torch.stack([feat_cache[i] for i in ids])[None]
-            clock = common.StageClock(device)
+            clock = common.StageClock(device, synced=opts.split_timing)
             out, hint, tsdf = step(tsdf, cur, src, src_feats=src_feats, clock=clock)
             fid = cur_np["frame_id_string"][0]
             feat_cache[fid] = out["matching_feats_bhwc"][0]
@@ -170,4 +182,5 @@ def run(opts: Options, model=None):
 
     common.write_scores(scores_dir, all_frame_avg, scene_avg)
     return {"frame_avg": all_frame_avg.final_metrics, "scene_avg": scene_avg.final_metrics,
-            "frames": frames, "scan_time": scan_time, "meshes": meshes}
+            "frame_rows": all_frame_avg.elem_metrics, "frames": frames, "scan_time": scan_time,
+            "meshes": meshes}

@@ -21,8 +21,10 @@ src/doubletake/tools/tsdf.py):
   * ``raycast`` — the hint renderer: a dense coarse-then-fine march along
     camera z to the first observed + -> - zero crossing, linear
     refinement, and the trilinear fusion weight at the surface, for one
-    pose or a batch of poses in one march. Plain torch, as the JAX raycast
-    is plain XLA.
+    pose or a batch of poses in one march; with ``use_mip`` the coarse
+    pass is the JAX package's candidate-block march over a min-pooled mip
+    of the volume (``build_mip``). Plain torch, as the JAX raycast is plain
+    XLA.
   * ``prepare_static`` — a volume that no longer changes (the offline
     pass-2 and revisit hint volumes), rounded through bf16 once instead of
     at every corner read: the counterpart of ``build_ray_table``, whose
@@ -232,6 +234,88 @@ def _sampler(vol, ov, dv):
     return sample
 
 
+MIP_FACTOR = 4          # voxels per mip cell edge
+MIP_WINDOW_VOXELS = 10  # full-resolution window after each candidate, in voxels
+
+
+def build_mip(vol, weight_epsilon: float = 1e-4):
+    """(X/4, Y/4, ceil(Z/4)) conservative mip of observed-negative voxels
+    (the JAX package's ``_build_mip_table``): each cell holds the min of
+    ``where(weight > eps, value, +1)`` over its 4^3 voxels and a one-voxel
+    halo around them. A trilinear sample whose contributing corners include
+    an observed voxel <= 0 lies in a cell that reads <= 0, so the mip flags
+    a superset of the dense march's crossing samples.
+
+    The JAX package packs the cells 128 to a row in bf16 for the TPU's
+    gathers; the march reads only whether a cell is <= 0, which bf16
+    rounding keeps, so a float32 (Xm, Ym, Zm) tensor gives the same flags.
+    """
+    X, Y, Z = vol.dims
+    f = MIP_FACTOR
+    assert X % f == 0 and Y % f == 0, (X, Y)
+    zp = -(-Z // f) * f
+    assert zp // f <= 128, zp // f
+    v = torch.where(vol.weights > weight_epsilon, vol.values, torch.ones_like(vol.values))
+    v = torch.nn.functional.pad(v, (0, zp - Z), value=1.0)
+
+    def pool_axis(x, ax):
+        """Stride-f min over f + 2 voxels along ``ax``: the block's min, the
+        previous block's last voxel and the next block's first."""
+        blocks = x.movedim(ax, -1).unflatten(-1, (-1, f))
+        first, last = blocks[..., 0], blocks[..., -1]
+        prev_last = torch.cat([last[..., :1], last[..., :-1]], -1)
+        next_first = torch.cat([first[..., 1:], first[..., -1:]], -1)
+        m = torch.minimum(blocks.amin(-1), torch.minimum(prev_last, next_first))
+        return m.movedim(-1, ax)
+
+    for ax in range(3):
+        v = pool_axis(v, ax)
+    return v
+
+
+def _mip_coarse(vol, ov, dv, zs, hit_box, sample, min_depth, max_depth, weight_epsilon):
+    """The candidate-block coarse pass (JAX ``raycast_table``'s mip
+    branch): the coarse samples read the mip; the first three runs of
+    flagged samples are candidates; each gets a forward window of ``wn``
+    coarse samples (from one before the run), marched at full resolution
+    with the dense crossing rule, so a crossing both marches find has the
+    same bracket. Returns (valid, v0, v1, z_lo) of the first crossing."""
+    mip = build_mip(vol)
+    X, Y, Z = vol.dims
+    sc, n = zs.shape
+    hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=zs.device) - 1e-4
+    v = ov[None] + zs[:, None, :] * dv[None]                                   # (Sc, 3, N)
+    v = torch.minimum(torch.nan_to_num(v.permute(0, 2, 1), nan=0.0).clamp(min=0.0), hi)
+    cell = torch.floor(v).long() // MIP_FACTOR
+    flags = (mip[cell[..., 0], cell[..., 1], cell[..., 2]] <= 0.0) & hit_box[None]
+    # candidates: the starts of flag runs (a run's inside is one surface's halo)
+    runs = flags & ~torch.cat([torch.zeros_like(flags[:1]), flags[:-1]])
+    sidx = torch.arange(sc, device=zs.device)[:, None]
+    starts, any_run = [], []
+    for _ in range(3):
+        starts.append(runs.to(torch.uint8).argmax(0))
+        any_run.append(runs.any(0))
+        runs = runs & (sidx > starts[-1][None])
+    # the window covers the early-flag distance at the nominal step, plus
+    # one sample before the run
+    dz_nom = (max_depth - min_depth) / (sc - 1)
+    wn = min(sc, int(np.ceil(MIP_WINDOW_VOXELS * vol.voxel_size / dz_nom)) + 3)
+    offs = torch.arange(-1, wn - 1, device=zs.device)
+    widx = (torch.stack(starts)[:, None] + offs[None, :, None]).clamp(0, sc - 1)
+    zw = zs.gather(0, widx.reshape(3 * wn, n))                                # (3 Wn, N)
+    wvals, _, wmins = sample(zw)
+    wobs = wmins > weight_epsilon
+    # pairs of consecutive samples inside each window, windows in ray order;
+    # a clipped index repeats a sample, and (v > 0) & (v <= 0) never holds
+    p0 = torch.tensor([c * wn + j for c in range(3) for j in range(wn - 1)], device=zs.device)
+    ok = torch.stack(any_run).repeat_interleave(wn - 1, 0)
+    cross = ((wvals[p0] > 0) & (wvals[p0 + 1] <= 0) & wobs[p0] & wobs[p0 + 1] & ok
+             & hit_box[None])
+    start = p0[cross.to(torch.uint8).argmax(0)][None]
+    return (cross.any(0), wvals.gather(0, start)[0], wvals.gather(0, start + 1)[0],
+            zw.gather(0, start)[0])
+
+
 def _first_crossing(vals, obs, extra=None):
     """Index of the first (+ -> <= 0) pair between consecutive samples whose
     both ends are observed, and whether one exists."""
@@ -243,7 +327,7 @@ def _first_crossing(vals, obs, extra=None):
 
 def raycast(vol, world_T_cam, invK, height: int, width: int,
             min_depth: float = 0.1, max_depth: float = 5.0, num_samples: int = 256,
-            weight_epsilon: float = 1e-4):
+            weight_epsilon: float = 1e-4, use_mip: bool = False):
     """Render hint depth + confidence by ray-marching a ``TSDF`` or a
     ``StaticVolume``.
 
@@ -255,6 +339,13 @@ def raycast(vol, world_T_cam, invK, height: int, width: int,
     surface —, weight — trilinear weight at the surface —, valid), each
     (height, width) for a (4, 4) pose and inverse intrinsics, or
     (B, height, width) for (B, 4, 4) ones.
+
+    ``use_mip``: the coarse pass is the candidate-block march
+    (``_mip_coarse``), the mip built from ``vol`` at this call, as the JAX
+    package's ``raycast(use_mip=True)`` builds it. It is another algorithm,
+    not a faster copy: where both marches find a crossing the depths are
+    equal, but a grazing ray, or one with more than three false candidates
+    before its surface, can be found by one and missed by the other.
 
     A batch is one march over all its rays. Each pose's rays are set up
     with the same (3, 3) products as a single pose's, and the march is
@@ -304,11 +395,15 @@ def raycast(vol, world_T_cam, invK, height: int, width: int,
     sample = _sampler(vol, ov, dv)
 
     # coarse pass: bracket the first crossing
-    vals, _, wmins = sample(zs)
-    first, valid = _first_crossing(vals, wmins > weight_epsilon, hit_box[None])
-    v0 = vals[:-1].gather(0, first[None])[0]
-    v1 = vals[1:].gather(0, first[None])[0]
-    z_lo = zs.gather(0, first[None])[0]
+    if use_mip:
+        valid, v0, v1, z_lo = _mip_coarse(vol, ov, dv, zs, hit_box, sample, min_depth,
+                                          max_depth, weight_epsilon)
+    else:
+        vals, _, wmins = sample(zs)
+        first, valid = _first_crossing(vals, wmins > weight_epsilon, hit_box[None])
+        v0 = vals[:-1].gather(0, first[None])[0]
+        v1 = vals[1:].gather(0, first[None])[0]
+        z_lo = zs.gather(0, first[None])[0]
     depth_coarse = z_lo + v0 / torch.clamp(v0 - v1, min=1e-12) * dz
 
     # fine pass: re-march the bracketing interval

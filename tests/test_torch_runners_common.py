@@ -1,6 +1,7 @@
 """The port's shared runner pieces against the JAX package's, on the CPU:
-the lazy (tolerant) weight load, the hint-volume fuser, and the options the
-port refuses instead of ignoring.
+the lazy (tolerant) weight load, the hint-volume fuser, the option the port
+refuses instead of ignoring, and the serving options ``raycast_mip`` and
+``split_timing``.
 
 Lazy load: a JAX npz of another initialisation with one layer's shape
 changed is merged over the same starting weights by both packages; every
@@ -25,6 +26,7 @@ from doubletake_tpu_torch.checkpoints.convert import (
     load_weights,
     variables_to_state_dict,
 )
+from doubletake_tpu_torch.datasets import registry
 from doubletake_tpu_torch.options import Options
 from doubletake_tpu_torch.runners import common, incremental, no_hint, offline_two_pass, revisit
 
@@ -111,9 +113,109 @@ def test_depth_visualization_is_not_ported_yet(runner, tmp_path):
         runner.run(o)
 
 
+def short_dataset(*a, **k):
+    return registry.dataset_from_opts(*a, num_frames=12, **k)
+
+
+def saved_run(module, opts, model, tmp_path, monkeypatch):
+    """One run of ``module`` over the 12-frame scan: its result and the
+    volumes it saved (values, weights), by scan."""
+    monkeypatch.setattr(module, "dataset_from_opts", short_dataset)
+    res = module.run(opts, model=model)
+    vols = {}
+    for path in sorted(tmp_path.glob(f"{opts.name}/*/meshes/*_tsdf.npz")):
+        with np.load(path) as f:
+            vols[path.name] = (f["tsdf_values"], f["tsdf_weights"])
+    assert vols
+    return res, vols
+
+
+def depth_metrics(row):
+    return {k: v for k, v in row.items() if not k.endswith("_time")}
+
+
+EXTRA = {
+    "incremental": dict(batch_size=1),
+    "no_hint": dict(model_type="depth_model", feature_volume_type="mlp_feature_volume"),
+    "offline_two_pass": {},
+    "revisit": dict(single_debug_scan_id="synth0@1"),
+}
+
+
 @pytest.mark.parametrize("runner", [incremental, no_hint, offline_two_pass, revisit],
                          ids=lambda m: m.__name__.split(".")[-1])
-def test_raycast_mip_is_not_ported_yet(runner, tmp_path):
-    o = options(Options, device="cpu", raycast_mip=True, output_base_path=str(tmp_path))
-    with pytest.raises(ValueError, match="raycast_mip is not ported yet"):
-        runner.run(o)
+def test_raycast_mip(runner, tmp_path, monkeypatch):
+    """Only the incremental runner reads ``raycast_mip``, as in the JAX
+    package: its hints take the mip march and its run matches the JAX
+    incremental run with the option (same weights, the 12-frame scan; the
+    bounds of tests/test_torch_incremental.py's chained step). The other
+    runners give the same outputs with and without it."""
+    name = runner.__name__.split(".")[-1]
+    kw = dict(EXTRA[name], run_fusion=True, output_base_path=str(tmp_path))
+    popts = options(Options, device="cpu", name="mip", raycast_mip=True, **kw)
+    ds = short_dataset(popts, split="test", limit_to_scan_id="synth0")
+    model = common.build_model(popts)
+    if name != "incremental":
+        model = common.init_or_load_params(popts, model)
+        res, vols = saved_run(runner, popts, model, tmp_path, monkeypatch)
+        off = options(Options, device="cpu", name="plain", **kw)
+        res0, vols0 = saved_run(runner, off, model, tmp_path, monkeypatch)
+        assert depth_metrics(res["frame_avg"]) == depth_metrics(res0["frame_avg"])
+        for scan, (values, weights) in vols0.items():
+            np.testing.assert_array_equal(vols[scan][0], values)
+            np.testing.assert_array_equal(vols[scan][1], weights)
+        return
+
+    from doubletake_tpu.datasets import registry as jregistry
+    from doubletake_tpu.runners import incremental as jincremental
+
+    jopts = options(JaxOptions, name="jax", raycast_mip=True, **kw)
+    jmodel = jcommon.build_model(jopts)
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                     *jcommon.device_batch(*collate([ds[0]])))
+    model.load_state_dict(variables_to_state_dict(jax.device_get(variables)))
+    monkeypatch.setattr(jincremental, "dataset_from_opts",
+                        lambda *a, **k: jregistry.dataset_from_opts(*a, num_frames=12, **k))
+    jres = jincremental.run(jopts, variables=variables)
+    mip_calls = []
+    render_hint = common.render_hint
+
+    def recording_render_hint(*a, use_mip=False, **k):
+        mip_calls.append(use_mip)
+        return render_hint(*a, use_mip=use_mip, **k)
+
+    monkeypatch.setattr(common, "render_hint", recording_render_hint)
+    res, vols = saved_run(runner, popts, model, tmp_path, monkeypatch)
+    assert mip_calls and all(mip_calls) and len(mip_calls) == res["frames"]
+    jfa, fa = jres["frame_avg"], res["frame_avg"]
+    assert fa["hint_coverage"] > 0 and abs(fa["hint_coverage"] - jfa["hint_coverage"]) <= 0.01
+    for key in ("abs_diff", "abs_rel", "rmse"):
+        assert abs(fa[key] - jfa[key]) <= 1e-4 * abs(jfa[key]), key
+    with np.load(tmp_path / "jax" / "incremental_default" / "meshes" / "synth0_tsdf.npz") as f:
+        jvalues, jweights = f["tsdf_values"], f["tsdf_weights"]
+    values, weights = vols["synth0_tsdf.npz"]
+    dv = np.abs(values.astype(np.float32) - jvalues.astype(np.float32))
+    assert float((dv > 1e-3).mean()) <= 1e-4
+    np.testing.assert_allclose(weights.astype(np.float64).sum(),
+                               jweights.astype(np.float64).sum(), rtol=1e-4)
+
+
+def test_split_timing(tmp_path, monkeypatch):
+    """``split_timing``: every frame's depths (its depth metrics) and the
+    volume equal the fused run's, and each frame has finite host-clock
+    hint, model and fuse times."""
+    kw = dict(batch_size=1, run_fusion=True, output_base_path=str(tmp_path))
+    fused_opts = options(Options, device="cpu", name="fused", **kw)
+    model = common.init_or_load_params(fused_opts, common.build_model(fused_opts))
+    fused, fused_vols = saved_run(incremental, fused_opts, model, tmp_path, monkeypatch)
+    split, split_vols = saved_run(incremental, options(Options, device="cpu", name="split",
+                                                       split_timing=True, **kw),
+                                  model, tmp_path, monkeypatch)
+    assert split["frames"] == fused["frames"] == len(split["frame_rows"]) > 1
+    for a, b in zip(split["frame_rows"], fused["frame_rows"]):
+        assert depth_metrics(a) == depth_metrics(b)
+        for key in ("hint_time", "model_time", "fuse_time"):
+            assert np.isfinite(a[key]) and a[key] > 0, key
+    for scan, (values, weights) in fused_vols.items():
+        np.testing.assert_array_equal(split_vols[scan][0], values)
+        np.testing.assert_array_equal(split_vols[scan][1], weights)

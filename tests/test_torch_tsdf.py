@@ -211,3 +211,89 @@ def test_integrate_camera_on_a_voxel_centre():
     assert float(tvol.weights.max()) > 0
     np.testing.assert_allclose(tvol.values.numpy(), np.asarray(jvol.values), atol=1e-5)
     np.testing.assert_allclose(tvol.weights.numpy(), np.asarray(jvol.weights), atol=1e-6)
+
+
+# ------------------------------------------------------------ the mip march
+
+
+@pytest.fixture(scope="module")
+def room():
+    """The synthetic room fused by the JAX package (``synthetic_volume``),
+    the same volume on the port's side, a pose and the inverse intrinsics."""
+    jvol, wTc, K = synthetic_volume()
+    tvol = tt.TSDF(values=torch.from_numpy(np.array(jvol.values)),
+                   weights=torch.from_numpy(np.array(jvol.weights)),
+                   origin=torch.from_numpy(np.array(jvol.origin)), voxel_size=jvol.voxel_size)
+    return jvol, tvol, wTc, np.linalg.inv(K).astype(np.float32)
+
+
+def test_mip_flags_match_jax(room):
+    """The port's float32 mip flags (cell <= 0) are the JAX package's bf16
+    packed table's, cell for cell."""
+    jvol, tvol, _, _ = room
+    table, zm = jt._build_mip_table(jvol)
+    mip = tt.build_mip(tvol)
+    xm, ym = tvol.dims[0] // 4, tvol.dims[1] // 4
+    assert tuple(mip.shape) == (xm, ym, zm)
+    jflags = np.asarray(table.astype(jnp.float32)).reshape(xm, ym, 128)[..., :zm] <= 0
+    assert jflags.any() and not jflags.all()
+    np.testing.assert_array_equal(mip.numpy() <= 0, jflags)
+
+
+def test_raycast_mip_matches_jax(room):
+    """``use_mip=True`` against the JAX package's mip march, at the dense
+    raycast's tolerances (``test_raycast_matches_jax``)."""
+    jvol, tvol, wTc, invK = room
+    kw = dict(min_depth=0.3, max_depth=5.0, num_samples=128)
+    jd, jw, jv = jt.raycast(jvol, jnp.asarray(wTc), jnp.asarray(invK), 96, 128, use_mip=True,
+                            **kw)
+    td, tw, tv = tt.raycast(tvol, torch.from_numpy(wTc), torch.from_numpy(invK), 96, 128,
+                            use_mip=True, **kw)
+    jd, jw, jv = np.asarray(jd), np.asarray(jw), np.asarray(jv)
+    td, tw, tv = td.numpy(), tw.numpy(), tv.numpy()
+    assert jv.mean() > 0.5
+    assert float((jv != tv).mean()) <= 1e-3
+    both = jv & tv
+    assert np.abs(jd[both] - td[both]).max() < 1e-4
+    assert np.abs(jw[both] - tw[both]).max() < 1e-4
+    assert np.isnan(td[~tv]).all() and (tw[~tv] == 0).all()
+
+
+def test_raycast_mip_matches_dense():
+    """The mip march against the port's own dense march on the JAX
+    package's scene (tests/test_tsdf.py:148-176: two fused walls at 0.08 m),
+    seen from two poses in one batch: equal depths where both find a
+    surface (each window re-runs the dense crossing rule on the same
+    samples), and a validity sliver under 5%. (On a cluttered scene a ray
+    whose surface run is not among its three candidates can find a later
+    surface: the JAX march does the same, ``test_raycast_mip_matches_jax``.)"""
+    cfg = tt.FusionConfig(min_depth=0.5, max_depth=3.5)
+    vol = tt.TSDF.from_bounds(dict(xmin=-1.0, xmax=1.0, ymin=-1.0, ymax=1.0, zmin=0.0,
+                                   zmax=3.0), 0.08)
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0] = K[1, 1] = 40.0
+    K[0, 2], K[1, 2] = 32.0, 24.0
+    cam2 = np.eye(4, dtype=np.float32)
+    cam2[0, 3] = 0.15
+    for z, cTw in ((2.0, np.eye(4, dtype=np.float32)), (1.8, cam2)):
+        tt.integrate_depth(vol, torch.full((48, 64, 1), z), torch.from_numpy(cTw),
+                           torch.from_numpy(K), cfg)
+    view2 = np.eye(4, dtype=np.float32)
+    view2[:3, 3] = (-0.1, 0.05, 0.1)
+    poses = torch.from_numpy(np.stack([np.eye(4, dtype=np.float32), view2]))
+    invKs = torch.from_numpy(np.stack([np.linalg.inv(K)] * 2).astype(np.float32))
+    kw = dict(min_depth=0.5, max_depth=3.0, num_samples=200)
+    d0, w0, v0 = tt.raycast(vol, poses, invKs, 48, 64, **kw)
+    d1, w1, v1 = tt.raycast(vol, poses, invKs, 48, 64, use_mip=True, **kw)
+    both = v0 & v1
+    assert float(both.float().mean()) > 0.5
+    assert torch.equal(d0[both], d1[both]) and torch.equal(w0[both], w1[both])
+    assert float((v0 != v1).float().mean()) < 0.05
+
+
+def test_raycast_mip_empty_volume_all_invalid():
+    tvol = tt.TSDF.from_bounds(BOUNDS, 0.04)
+    depth, weights, valid = tt.raycast(tvol, torch.eye(4), torch.from_numpy(
+        np.linalg.inv(intrinsics())), 16, 24, min_depth=0.5, max_depth=3.0, num_samples=64,
+        use_mip=True)
+    assert not valid.any() and torch.isnan(depth).all() and (weights == 0).all()
