@@ -115,7 +115,36 @@ Phases (each one fails the run on error):
      synthetic scan with and without it: each frame's depth metrics and the
      saved volume equal, the split run's host-clock hint / model / fuse times
      finite; both runs' launches counted.
-  Phases 15 and 16 run right after phase 10, on its model; phase 14 last.
+  17. data-parallel training (``training/distributed.py``): (a) the
+     flagship at precision 16, global b=16, 2 steps on one fixed batch
+     (``train_loop.fixed_batch_steps``) in a one-process NCCL group,
+     against the one-device step, and the one-device step against itself
+     (the card's own run-to-run spread); (b) two spawned gloo ranks on the
+     card (NCCL refuses two ranks on one GPU), global b=4, against the plain
+     collective (``make_sharded_train_step``) in this process, run twice:
+     each rank's first-step vector after the collective (gradients, running
+     statistics, losses) within 8x the plain collective's rerun distance,
+     a gate shown to reject a rank that skips the reduction or sums in
+     place of averaging (``check_reduced``); then the first step's losses
+     bit-equal and the rest as ``compare_states`` says (cuDNN's and the
+     samplers' backward is not bit-reproducible), bit-equality reported;
+     step ms (against phase 11's), the flat vector's bytes, the all-reduce
+     ms, peak GiB per rank; no kernel launches inside the steps.
+  18. hint renders: phase 7's no-hint path again, untimed, with
+     ``cache_depths``; ``scripts.render_hints`` on the card over those
+     depths with --depth_noise 0.05: K2 once a
+     frame and variant (66 for synth0), 2 PNGs a frame in each variant, the
+     depth PNGs read back as the hint loader reads them within 1/2048 m of
+     a raycast of the same complete volume where valid; fuse and render ms
+     a frame.
+  19. the extras: ``integrate_batch`` of the GT frames through K2 bit-equal
+     to a loop of ``integrate_depth``, ``cull=True`` bit-equal to
+     ``cull=False``, ``sample_tsdf`` on the card against the CPU within
+     SAMPLE_TOL; ``scripts.render_trajectory`` on phase 4's volume over
+     TRAJECTORY_FRAMES frames (ms a frame, mp4 or PNG sequence); a 12-frame
+     incremental run with ``dump_depth_visualization``: one panel a frame.
+  Phases 15, 16 and 19 run right after phase 10, on its model; 17 after 11,
+  18 after 17; phase 14 last.
   In phases 7-10 and 12 both kernels must launch as often as the path's batches and
   fused frames imply (counted from the dataset's length and the batch
   size), the metrics must be finite, hint coverage (pass 2, rescan) > 0,
@@ -155,6 +184,21 @@ TRAIN_STEPS, TRAIN_VAL_BATCH = 4, 4
 # diverges at 1e-3 (NaN by step 4 on the card) and does not fall within 6
 # steps at the config's 1e-4; AdamW's first steps move every weight by ~lr
 FIXED_BATCH_LR = 1e-5
+# phase 17 (``check_reduced``): the first step's flat vector after the
+# collective, part by part (gradients, running statistics, losses), as a
+# relative L2 distance from the plain collective's; the limit is DP_SPREAD_FACTOR
+# x the plain collective's distance from its own rerun (the backward adds with
+# atomics, so a rerun of the same step need not be bit-equal) plus a margin of
+# a few float32 roundings where the rerun is bit-equal. After 2 steps (``compare_states``): the second step's losses and
+# the running statistics' median, relative; parameters' median difference
+DP_SPREAD_FACTOR, DP_SPREAD_FLOOR = 8.0, 1e-6
+DP_LOSS_REL, DP_STATS_REL = 2e-2, 1e-2
+DP_TIMEOUT_S, DP_JOIN_TIMEOUT_S = 300.0, 420.0
+# phase 19: trilinear samples, card against the CPU: the two devices may round
+# a sample's float32 voxel coordinate (< 512) one ulp (2^-15) apart each way,
+# and neighbouring TSDF values differ by up to 2
+SAMPLE_TOL = 2 * 2 * 2.0 ** -15
+TRAJECTORY_FRAMES = 8
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -1689,6 +1733,453 @@ def run_split_timing(out_dir, model):
     return summary
 
 
+# ------------------------- data-parallel training, hint renders, the extras
+
+
+def compare_states(name, ref, got, lr):
+    """A run's losses and state (2 steps) against a reference run's. The
+    first step's losses must be bit-equal (the same forward of the same
+    weights and rows). cuDNN's and grid_sample's backward add with atomics,
+    so the gradients, and what follows them, need not be: the second step's
+    losses within DP_LOSS_REL, the running statistics' median relative
+    difference within DP_STATS_REL, and the parameters' median difference
+    below lr / 10 (a rank that kept its own shard's gradients would move
+    most elements by about lr). The parameters' largest difference is
+    reported only: AdamW moves an element by at most about lr a step,
+    whatever its gradient, so it cannot exceed ~2 lr over 2 steps. Returns
+    the row, bit-equality reported."""
+    import torch
+
+    state_a, state_b = ref["state"], got["state"]
+    params = [k for k in state_a if not k.endswith(("running_mean", "running_var",
+                                                    "num_batches_tracked"))]
+    stats = [k for k in state_a if k.endswith(("running_mean", "running_var"))]
+
+    def flat(state, keys):
+        return torch.cat([state[k].double().reshape(-1) for k in keys])
+
+    dp = (flat(state_a, params) - flat(state_b, params)).abs()
+    sa = flat(state_a, stats)
+    ds = (sa - flat(state_b, stats)).abs() / sa.abs().clamp(min=1e-12)
+    row = {"bit_equal": ref["losses"] == got["losses"] and all(
+               torch.equal(state_a[k], state_b[k]) for k in state_a),
+           "first_loss_equal": ref["losses"][0] == got["losses"][0],
+           "param_max_abs": float(dp.max()), "param_median_abs": float(dp.median()),
+           "loss_max_rel": max(abs(b[k] - a[k]) / max(abs(a[k]), 1e-12)
+                               for a, b in zip(ref["losses"], got["losses"]) for k in a),
+           "stats_max_rel": float(ds.max()), "stats_median_rel": float(ds.median())}
+    log(f"{name}: bit-equal {row['bit_equal']}, first losses equal {row['first_loss_equal']}; "
+        f"parameters max / median |diff| {row['param_max_abs']:.3e} (reported) / "
+        f"{row['param_median_abs']:.3e} (limit {lr / 10:.1e}); losses "
+        f"{row['loss_max_rel']:.3e} relative (limit {DP_LOSS_REL}); running statistics max / "
+        f"median relative {row['stats_max_rel']:.3e} / {row['stats_median_rel']:.3e} (limit "
+        f"{DP_STATS_REL} on the median)")
+    if not (row["first_loss_equal"] and row["param_median_abs"] <= lr / 10
+            and row["loss_max_rel"] <= DP_LOSS_REL and row["stats_median_rel"] <= DP_STATS_REL):
+        raise RuntimeError(f"{name}: {row}")
+    return row
+
+
+def vector_distance(model, ref, got):
+    """Two step vectors as ``pack`` lays them out (the gradients of
+    ``model``'s trained parameters, its batch norms' running means and
+    variances, the losses): each part's relative L2 distance."""
+    import torch
+
+    n_grad = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    n_stats = sum(m.running_mean.numel() + m.running_var.numel() for m in model.modules()
+                  if isinstance(m, torch.nn.BatchNorm2d))
+    a, b = ref.double(), got.to(ref.device).double()
+    cuts = {"gradients": (0, n_grad), "statistics": (n_grad, n_grad + n_stats),
+            "losses": (n_grad + n_stats, a.numel())}
+    return {k: float((a[i:j] - b[i:j]).norm() / a[i:j].norm().clamp(min=1e-30))
+            for k, (i, j) in cuts.items()}
+
+
+def check_reduced(model, plain, rerun, ranks):
+    """17(b)'s gate: each rank's first-step vector after the collective
+    within the limit of every part's distance from the plain collective's
+    (DP_SPREAD_FACTOR x the plain collective's distance from its rerun +
+    DP_SPREAD_FLOOR); the gate must reject the two faults a collective can
+    have, checked on the plain collective's own vectors: a rank that keeps
+    its shard's vector (shard 0's, unreduced) and one that sums in place of
+    averaging (twice the mean at a world of 2)."""
+    spread = vector_distance(model, plain["reduced"], rerun["reduced"])
+    limits = {k: DP_SPREAD_FACTOR * v + DP_SPREAD_FLOOR for k, v in spread.items()}
+    faults = {"unreduced": vector_distance(model, plain["reduced"], plain["local"]),
+              "summed": vector_distance(model, plain["reduced"], 2 * plain["reduced"])}
+    got = [vector_distance(model, plain["reduced"], r["reduced"]) for r in ranks]
+    row = {"rerun_spread": spread, "limits": limits, "ranks": got, "faults": faults,
+           "ranks_within": all(d[k] <= limits[k] for d in got for k in limits),
+           "faults_rejected": {f: {k: d[k] > limits[k] for k in limits}
+                               for f, d in faults.items()}}
+    def fmt(d):
+        return ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+
+    log(f"data-parallel (b): first-step vector after the collective, relative L2 by part: "
+        + "; ".join(f"rank {r} {fmt(d)}" for r, d in enumerate(got))
+        + f"; limits {fmt(limits)} (the plain collective's rerun {fmt(spread)}); planted "
+        + "; ".join(f"{f} {fmt(d)}" for f, d in faults.items()))
+    if not (row["ranks_within"] and all(row["faults_rejected"]["summed"].values())
+            and row["faults_rejected"]["unreduced"]["gradients"]):
+        raise RuntimeError(f"data-parallel (b): the reduced vectors: {row}")
+    return row
+
+
+def dp_options(out_dir, batch):
+    """The flagship at precision 16 (phase 11's), a global batch of
+    ``batch``, the fixed-batch learning rate."""
+    o = train_options(out_dir)
+    o.name = f"chip_smoke_dp{batch}"
+    o.batch_size = batch
+    o.lr = FIXED_BATCH_LR
+    return o
+
+
+def dp_rank(rank, world, opts):
+    """One rank of phase 17 (at module level, so that spawned ranks import
+    it): ``train_loop.fixed_batch_steps`` with the kernels' launches inside
+    it counted, its peak device memory, and in a group the median ms of 5
+    all-reduces of the step's flat vector."""
+    import torch
+
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.training import distributed
+    from doubletake_tpu_torch.training import train_loop as tl
+
+    device = torch.device(opts.device)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fv.fused_feature_volume.launches = 0
+    ig.fused_integrate.launches = 0
+    res = tl.fixed_batch_steps(rank, world, opts)
+    res["launches"] = {"fused_volume": fv.fused_feature_volume.launches,
+                       "integrate": ig.fused_integrate.launches}
+    res["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["allreduce_ms"] = None
+    if torch.distributed.is_initialized():
+        flat = torch.zeros(res["flat_bytes"] // 4, dtype=torch.float32, device=device)
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            distributed.all_reduce_mean(flat)
+            torch.cuda.synchronize(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res["allreduce_ms"] = sorted(ms)[2]
+    return res
+
+
+def plain_collective(opts, batch, shards_n=2, steps=2):
+    """The plain collective (``make_sharded_train_step``) over ``shards_n``
+    shards of ``batch`` with each rank's draws, ``steps`` steps from
+    ``init_train_state``'s weights: the losses, the state on the host, the
+    first step's averaged vector and shard 0's before the average (on the
+    card), the model, and the kernels' launches."""
+    import torch
+
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.runners import common
+    from doubletake_tpu_torch.training import train_loop as tl
+
+    device = torch.device(opts.device)
+    model = tl.init_train_state(opts, common.build_model(opts))
+    optimizer, schedule = tl.make_optimizer(opts, model)
+    step = tl.make_sharded_train_step(tl.train_model_for(opts, model), optimizer, schedule,
+                                      use_hint_model=True, precision=opts.precision)
+    rows = opts.batch_size // shards_n
+    shards = [tl.train_batch(*({k: v[rows * r: rows * (r + 1)] for k, v in part.items()}
+                               for part in batch), device) for r in range(shards_n)]
+    gens = [tl.rank_generator(opts, r) for r in range(shards_n)]
+    fv.fused_feature_volume.launches = 0
+    ig.fused_integrate.launches = 0
+    losses, first = [], {}
+    for i in range(steps):
+        draws = [tl.draw_step_randomness(g, rows, s["image_bkhw3"].shape[1], device)
+                 for g, (_, s) in zip(gens, shards)]
+        out = step([(c, s, aug, flip) for (c, s), (aug, flip) in zip(shards, draws)])
+        losses.append({k: float(v) for k, v in out.items()})
+        if i == 0:
+            first = {"reduced": step.reduced.clone(), "local": step.flats[0].clone()}
+    return {"losses": losses, "state": {k: v.cpu() for k, v in model.state_dict().items()},
+            "model": model, **first,
+            "launches": {"fused_volume": fv.fused_feature_volume.launches,
+                         "integrate": ig.fused_integrate.launches}}
+
+
+def run_data_parallel(out_dir, train_summary):
+    """Phase 17: (a) the data-parallel step in a one-process NCCL group
+    against the one-device step (and the one-device step against itself,
+    the card's own reproducibility), flagship at precision 16, global
+    b=16, 2 steps on one fixed batch; a world of 1 averages over one rank,
+    so (a) shows the step in a group runs, not that the reduction is right;
+    (b) two gloo ranks on the card (NCCL refuses two ranks on one GPU),
+    global b=4, against the plain collective in this process
+    (``check_reduced`` on the first step's vector, then ``compare_states``)."""
+    import torch
+
+    from doubletake_tpu_torch.training import distributed
+
+    t0 = time.perf_counter()
+    opts = dp_options(out_dir, BATCH)
+    one = dp_rank(0, 1, opts)
+    again = dp_rank(0, 1, opts)
+    store = tempfile.mkdtemp(dir=out_dir)
+    distributed.init_group(0, 1, distributed.default_backend(opts.device),
+                           os.path.join(store, "store"), timeout_s=DP_TIMEOUT_S)
+    try:
+        dp = dp_rank(0, 1, opts)
+    finally:
+        torch.distributed.destroy_process_group()
+    a = {"repeat": compare_states("data-parallel (a): one-device step run twice", one, again,
+                                  opts.lr),
+         "vs_one_device": compare_states("data-parallel (a): NCCL world of 1 vs one-device",
+                                         one, dp, opts.lr),
+         "step_ms": dp["step_ms"], "one_device_step_ms": one["step_ms"],
+         "phase11_step_ms": train_summary["step_ms"], "flat_bytes": dp["flat_bytes"],
+         "allreduce_ms": dp["allreduce_ms"], "peak_gib": dp["peak_gib"],
+         "launches": dp["launches"]}
+    log(f"data-parallel (a): step ms {[round(x, 1) for x in dp['step_ms']]} against the "
+        f"one-device {[round(x, 1) for x in one['step_ms']]} (phase 11: "
+        f"{train_summary['step_ms']:.1f}); flat vector {dp['flat_bytes'] / 2**20:.1f} MiB, "
+        f"all-reduce {dp['allreduce_ms']:.3f} ms, peak {dp['peak_gib']:.2f} GiB, launches "
+        f"{dp['launches']}")
+    del one, again, dp
+
+    ob = dp_options(out_dir, 4)
+    ranks = distributed.spawn(dp_rank, 2, out_dir, args=(ob,), backend="gloo",
+                              timeout_s=DP_TIMEOUT_S, join_timeout_s=DP_JOIN_TIMEOUT_S)
+    batch = first_train_batch(ob)
+    plain = plain_collective(ob, batch)
+    rerun = plain_collective(ob, batch)
+    b = {"reduced": check_reduced(plain["model"], plain, rerun, ranks),
+         "rerun": compare_states("data-parallel (b): the plain collective run twice", plain,
+                                 rerun, ob.lr),
+         "ranks": [compare_states(f"data-parallel (b): gloo rank {r} vs the plain collective",
+                                  plain, res, ob.lr) for r, res in enumerate(ranks)],
+         "step_ms": [res["step_ms"] for res in ranks], "flat_bytes": ranks[0]["flat_bytes"],
+         "allreduce_ms": [res["allreduce_ms"] for res in ranks],
+         "peak_gib": [res["peak_gib"] for res in ranks],
+         "launches": [res["launches"] for res in ranks]}
+    launches = {k: a["launches"][k] + sum(r[k] for r in b["launches"])
+                for k in ("fused_volume", "integrate")}
+    log(f"data-parallel (b): 2 gloo ranks, step ms {b['step_ms']}, all-reduce ms "
+        f"{b['allreduce_ms']}, peak GiB {b['peak_gib']}, launches {b['launches']} (the plain "
+        f"collective's {plain['launches']} / {rerun['launches']})")
+    if launches != {"fused_volume": 0, "integrate": 0} or any(
+            any(p["launches"].values()) for p in (plain, rerun)):
+        raise RuntimeError(f"data-parallel: kernels launched inside the steps: {launches}")
+    return {"a": a, "b": b, "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def first_train_batch(opts):
+    """The first global batch of ``opts``' training loader, as numpy."""
+    from doubletake_tpu_torch.data.loader import DataLoader
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+
+    ds = dataset_from_opts(opts, split="train", disable_flip=True)
+    batches = iter(DataLoader(ds, opts.batch_size, shuffle=True, num_workers=opts.num_workers,
+                              drop_last=True, seed=opts.random_seed))
+    batch = next(batches)
+    batches.close()
+    return batch
+
+
+def run_hint_renders(out_dir, no_hint_model):
+    """Phase 18: phase 7's no-hint path again, untimed, with
+    ``cache_depths`` (so phase 7's timed loop copies nothing to the host);
+    then ``scripts.render_hints`` on the card over those depths with
+    --depth_noise 0.05: K2 once a frame and variant, the PNG counts, and
+    the depth PNGs read back as the hint loader reads them within 1/2048 m
+    of a raycast of the same complete volume where valid; ms a frame of a
+    fuse and a render."""
+    import numpy as np
+    import torch
+
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.scripts import render_hints
+    from doubletake_tpu_torch.tools.partial_fuser import PartialFuser
+    from doubletake_tpu_torch.tools.tsdf import TSDF, FusionConfig
+    from doubletake_tpu_torch.utils.io import read_image_file
+
+    from doubletake_tpu_torch.runners import no_hint
+
+    t0 = time.perf_counter()
+    opts = no_hint_options(out_dir)
+    opts.name = "chip_smoke_no_hint_cache"
+    opts.cache_depths = True
+    no_hint.run(opts, model=no_hint_model)
+    cache_dir = os.path.join(out_dir, opts.name, "no_hint_default", "depth_cache")
+    render_dir = os.path.join(out_dir, "hint_renders")
+    fv.fused_feature_volume.launches = 0
+    ig.fused_integrate.launches = 0
+    t_cli = time.perf_counter()
+    render_hints.main(["--dataset", "synthetic", "--single_debug_scan_id", "synth0",
+                       "--split", opts.split, "--image_width", str(opts.image_width),
+                       "--image_height", str(opts.image_height), "--device", opts.device,
+                       "--depth_cache_dir", cache_dir, "--render_output_dir", render_dir,
+                       "--depth_noise", "0.05"])
+    sync()
+    cli_s = time.perf_counter() - t_cli
+    launches = {"fused_volume": fv.fused_feature_volume.launches,
+                "integrate": ig.fused_integrate.launches}
+    cache = np.load(os.path.join(cache_dir, "synth0_depths.npz"))
+    ids, depths = cache["frame_ids"], cache["depths"]
+    counts = {v: len(os.listdir(os.path.join(render_dir, "synth0", v)))
+              for v in ("renders", "partial_renders")}
+    expected = {"fused_volume": 0, "integrate": 2 * len(ids)}
+    if launches != expected or counts != {"renders": 2 * len(ids),
+                                          "partial_renders": 2 * len(ids)}:
+        raise RuntimeError(f"hint renders: launches {launches} (expected {expected}), "
+                           f"PNGs {counts} for {len(ids)} frames")
+
+    # the complete volume again in memory, timed; its raycasts against the PNGs
+    ds = dataset_from_opts(opts, split=opts.split, limit_to_scan_id="synth0")
+    fuser = PartialFuser(TSDF.from_bounds(render_hints.scene_bounds_for_fusion(ds, "synth0"),
+                                          render_hints.VOXEL_SIZE, device=opts.device),
+                         FusionConfig(min_depth=0.5, max_depth=3.0))
+    fuse_ms, render_ms, worst, valid_share = [], [], 0.0, []
+    for i, fid in enumerate(ids):
+        sync()
+        t = time.perf_counter()
+        fuser.fuse_frame(depths[i], ds.load_pose("synth0", fid)[1],
+                         ds.load_intrinsics("synth0", fid)["K_s0_b44"])
+        sync()
+        fuse_ms.append((time.perf_counter() - t) * 1e3)
+    K = render_hints.scaled_K(ds.load_intrinsics("synth0", ids[-1])["K_s0_b44"], ds)
+    for fid in ids:
+        sync()
+        t = time.perf_counter()
+        depth, _, valid = fuser.render_hint(ds.load_pose("synth0", fid)[0], np.linalg.inv(K),
+                                            render_hints.RENDER_H, render_hints.RENDER_W)
+        depth, valid = depth.cpu().numpy(), valid.cpu().numpy()
+        render_ms.append((time.perf_counter() - t) * 1e3)
+        png = read_image_file(os.path.join(render_dir, "synth0", "renders",
+                                           f"depth_{int(fid):06d}.png"),
+                              height=render_hints.RENDER_H, width=render_hints.RENDER_W,
+                              value_scale_factor=1.0 / 2048.0, resampling_mode="nearest")
+        png = png[..., 0] if png.ndim == 3 else png
+        both = valid & (png > 0)
+        valid_share.append(float(both.mean()))
+        if both.any():
+            worst = max(worst, float(np.abs(png[both] - depth[both]).max()))
+    summary = {"frames": len(ids), "launches": launches, "pngs": counts, "cli_s": cli_s,
+               "fuse_ms": fuse_ms, "render_ms": render_ms, "decode_max_abs_m": worst,
+               "valid_share_mean": float(np.mean(valid_share)),
+               "seconds": time.perf_counter() - t0}
+    log(f"hint renders: {len(ids)} frames x 2 variants in {cli_s:.1f} s, launches {launches}, "
+        f"PNGs {counts}; fuse {np.median(fuse_ms):.2f} / render {np.median(render_ms):.2f} ms a "
+        f"frame (median); PNG vs raycast max {worst:.2e} m over "
+        f"{summary['valid_share_mean']:.3f} valid pixels a frame")
+    if not (worst <= 1.0 / 2048.0 and summary["valid_share_mean"] > 0.1):
+        raise RuntimeError(f"hint renders: {summary}")
+    return summary
+
+
+def run_extras(out_dir, model, main_opts):
+    """Phase 19: ``integrate_batch`` of the GT frames through K2 bit-equal to
+    a loop of ``integrate_depth``; ``cull=True`` bit-equal to ``cull=False``;
+    ``sample_tsdf`` on the card against the CPU within SAMPLE_TOL; the
+    trajectory CLI on phase 4's volume over TRAJECTORY_FRAMES frames; a
+    12-frame incremental run with dump_depth_visualization: one panel a
+    frame."""
+    import numpy as np
+    import torch
+
+    from doubletake_tpu_torch.datasets import registry
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.runners import common, incremental
+    from doubletake_tpu_torch.scripts import render_trajectory
+    from doubletake_tpu_torch.tools import tsdf as tt
+
+    t0 = time.perf_counter()
+    device = torch.device(main_opts.device)
+    ds = registry.dataset_from_opts(main_opts, split=main_opts.split)
+    frames = gt_frames(ds, device)
+    fv.fused_feature_volume.launches = 0
+    ig.fused_integrate.launches = 0
+    vols = {}
+    with torch.no_grad():
+        for name in ("batch", "loop", "cull"):
+            vols[name], cfg = common.make_fuser(main_opts, ds, "synth0", device)
+        tt.integrate_batch(vols["batch"], torch.stack([f[0] for f in frames]),
+                           torch.stack([f[1] for f in frames]),
+                           torch.stack([f[2] for f in frames]), cfg)
+        for depth, cTw, K, _ in frames:
+            tt.integrate_depth(vols["loop"], depth, cTw, K, cfg)
+            tt.integrate_depth(vols["cull"], depth, cTw, K, cfg, cull=True,
+                               cull_max_fraction=0.5)
+    launches = {"fused_volume": fv.fused_feature_volume.launches,
+                "integrate": ig.fused_integrate.launches}
+    equal = {name: bool(torch.equal(vols[name].values, vols["loop"].values)
+                        and torch.equal(vols[name].weights, vols["loop"].weights))
+             for name in ("batch", "cull")}
+    fraction = tt.choose_cull_fraction(vols["loop"], [f[1] for f in frames], frames[0][2],
+                                       cfg, *frames[0][0].shape[:2])
+    vol = vols["loop"]
+    lo, hi = vol.origin, vol.origin + (torch.tensor(vol.dims, device=device) - 1) * vol.voxel_size
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    pts = (lo - 0.1 + torch.rand((200000, 3), generator=gen).to(device) * (hi - lo + 0.2))
+    cpu_vol = tt.TSDF(vol.values.cpu(), vol.weights.cpu(), vol.origin.cpu(), vol.voxel_size)
+    sample_err = {}
+    for what in ("tsdf", "weights"):
+        card = tt.sample_tsdf(vol, pts, what=what).cpu()
+        sample_err[what] = float((card - tt.sample_tsdf(cpu_vol, pts.cpu(), what=what)).abs().max())
+    log(f"extras: integrate_batch bit-equal to a loop {equal['batch']}, cull=True to "
+        f"cull=False {equal['cull']} (K2 launches {launches['integrate']} over "
+        f"{3 * len(frames)} fuses; choose_cull_fraction {fraction:.3f}); sample_tsdf card vs "
+        f"CPU max {sample_err}")
+    if not (all(equal.values()) and max(sample_err.values()) <= SAMPLE_TOL
+            and launches == {"fused_volume": 0, "integrate": 3 * len(frames)}):
+        raise RuntimeError(f"extras: equal {equal}, sample errors {sample_err}, "
+                           f"launches {launches}")
+    del vols, vol, cpu_vol
+
+    tsdf_path = os.path.join(main_opts.output_base_path, main_opts.name, "incremental_default",
+                             "meshes", "synth0_tsdf.npz")
+    t = time.perf_counter()
+    traj = render_trajectory.main(["--dataset", "synthetic", "--single_debug_scan_id", "synth0",
+                                   "--split", main_opts.split, "--device", main_opts.device,
+                                   "--tsdf_path", tsdf_path,
+                                   "--output", os.path.join(out_dir, "birdseye.mp4"),
+                                   "--max_frames", str(TRAJECTORY_FRAMES)])
+    traj_ms = (time.perf_counter() - t) * 1e3 / max(traj["frames"], 1)
+    log(f"extras: render_trajectory {traj['frames']} frames at 384x512, {traj_ms:.1f} ms a "
+        f"frame (video encode included) -> {os.path.basename(traj['path'])}")
+    if traj["frames"] != TRAJECTORY_FRAMES or not os.path.exists(traj["path"]):
+        raise RuntimeError(f"extras: render_trajectory wrote {traj}")
+
+    def short_dataset(*a, **k):
+        return registry.dataset_from_opts(*a, num_frames=12, **k)
+
+    opts = flagship_options(out_dir)
+    opts.name, opts.dump_depth_visualization = "chip_smoke_viz", True
+    n = len(short_dataset(opts, split=opts.split))
+    dataset_from_opts = incremental.dataset_from_opts
+    incremental.dataset_from_opts = short_dataset
+    try:
+        res, viz = drive("dump_depth_visualization", incremental.run, opts, model,
+                         {"fused_volume": n, "integrate": n})
+    finally:
+        incremental.dataset_from_opts = dataset_from_opts
+    panels = sorted(os.listdir(os.path.join(out_dir, opts.name, "incremental_default", "viz")))
+    log(f"extras: dump_depth_visualization {res['frames']} frames, {len(panels)} panels, "
+        f"launches {viz['launches']}")
+    if len(panels) != res["frames"] or res["frames"] != n:
+        raise RuntimeError(f"extras: {len(panels)} panels for {res['frames']} frames")
+    return {"launches": {k: launches[k] + viz["launches"][k] for k in launches},
+            "integrate_batch_equal": equal["batch"], "cull_equal": equal["cull"],
+            "cull_fraction": fraction, "sample_max_abs": sample_err,
+            "trajectory": {"frames": traj["frames"], "ms_per_frame": traj_ms,
+                           "output": os.path.basename(traj["path"])},
+            "viz": {"frames": res["frames"], "panels": len(panels), **viz},
+            "seconds": time.perf_counter() - t0}
+
+
 # -------------------------------------------------------------- kernel line
 
 
@@ -1853,8 +2344,11 @@ def main(argv):
             paths["offline_bf16"] = run_offline_bf16_path(tmp, model, batch_np)
             paths["raycast_mip"] = run_mip_path(tmp, model, main_summary, batch_np)
             paths["split_timing"] = run_split_timing(tmp, model)
+            paths["extras"] = run_extras(tmp, model, opts)
             del model
             paths["train"] = run_train_path(tmp)
+            paths["data_parallel"] = run_data_parallel(tmp, paths["train"])
+            paths["hint_renders"] = run_hint_renders(tmp, no_hint_model)
             paths["color_no_hint"] = run_color_path(tmp, no_hint_model)
             del no_hint_model
             paths["mesh_truth"] = run_mesh_truth_path(tmp, os.path.join(

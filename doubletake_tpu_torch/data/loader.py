@@ -5,6 +5,13 @@ Replaces the reference's torch DataLoader worker-process model
 assembled as numpy NHWC dicts and renamed for the model's batched layout
 (src keys get _bk* suffixes), with a bounded prefetch queue overlapping
 host IO with device compute.
+
+``shard=(rank, world)``: the data-parallel trainer's loader for one rank.
+Every rank runs the same seeded order and renders only its block of rows,
+``[rank * b / world, (rank + 1) * b / world)`` of every global batch of
+``batch_size`` = b rows (the JAX step shards the global batch over its
+mesh in such contiguous blocks), so the ranks together see exactly the
+rows of the one-process loader.
 """
 
 from __future__ import annotations
@@ -13,7 +20,7 @@ import queue
 import re
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -56,7 +63,12 @@ class DataLoader:
         drop_last: bool = False,
         seed: int = 0,
         infinite: bool = False,
+        shard: Tuple[int, int] = (0, 1),
     ):
+        rank, world = shard
+        if batch_size % world or not 0 <= rank < world or (world > 1 and not drop_last):
+            raise ValueError(f"shard {shard}: needs drop_last and a batch of {batch_size} "
+                             "that divides into world equal blocks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -65,6 +77,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.infinite = infinite
+        self.shard = shard
 
     def __len__(self):
         n = len(self.dataset)
@@ -78,8 +91,10 @@ class DataLoader:
             rng = np.random.RandomState(self.seed + epoch)
             rng.shuffle(idx)
         end = len(idx) - (len(idx) % self.batch_size) if self.drop_last else len(idx)
+        rank, world = self.shard
+        block = self.batch_size // world
         for s in range(0, end, self.batch_size):
-            yield idx[s: s + self.batch_size]
+            yield idx[s: s + self.batch_size][rank * block: (rank + 1) * block]
 
     def __iter__(self) -> Iterator:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)

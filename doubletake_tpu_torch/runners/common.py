@@ -1,7 +1,7 @@
 """Shared runner infrastructure: device selection, model construction and
-weights, options the port does not run yet, stage timing, the metric
-protocol (nearest upsample to full-res GT, valid > 0.5 m), the fusers (with
-colour), the hint render and the mesh export.
+weights, stage timing, the metric protocol (nearest upsample to full-res
+GT, valid > 0.5 m), the fusers (with colour), the hint render and the mesh
+export.
 
 Protocol parity with the reference eval scripts (test_no_hint.py:177-212,
 test_incremental.py:290-326): predictions are nearest-upsampled to the
@@ -111,13 +111,6 @@ def maybe_cast(opts: Options, model: torch.nn.Module) -> torch.nn.Module:
     if opts.compute_dtype == "bfloat16":
         return cast_floating(model, torch.bfloat16)
     return model
-
-
-def reject_unported(opts: Options):
-    """Raise for options whose code the port does not have yet, instead of
-    ignoring them: ``dump_depth_visualization`` only."""
-    if opts.dump_depth_visualization:
-        raise ValueError("dump_depth_visualization is not ported yet")
 
 
 class StageClock:

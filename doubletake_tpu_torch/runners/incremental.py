@@ -13,7 +13,10 @@ The hint is rendered at image/4 with the depth-resolution intrinsics
 
 With ``raycast_mip`` the hint takes the candidate-block mip march
 (``tools.tsdf.raycast(use_mip=True)``), as only the JAX incremental runner
-reads that option.
+reads that option. With ``dump_depth_visualization`` each frame's image,
+GT, prediction and hint panel is written under ``<base>/viz`` (the JAX
+runner's ``quick_viz_export``, incremental.py:270-280); the other runners
+ignore the option, as theirs do.
 
 The volume lives on the device for the whole scan and the fuse step updates
 it in place. Each frame's hint / model / fuse times are taken with CUDA
@@ -42,6 +45,7 @@ from doubletake_tpu_torch.runners import common
 from doubletake_tpu_torch.runners.no_hint import unique_scans
 from doubletake_tpu_torch.tools.tsdf import integrate_depth
 from doubletake_tpu_torch.utils.metrics import ResultsAverager
+from doubletake_tpu_torch.utils.visualization import quick_viz_export
 
 FEAT_CACHE_MAX = 64            # keyframe tuples reach back a few dozen frames
 
@@ -109,9 +113,8 @@ def run(opts: Options, model=None):
     """
     if "hint" not in opts.feature_volume_type:
         raise ValueError("incremental mode needs a hint model (mlp_mesh_hint_feature_volume)")
-    common.reject_unported(opts)
     device = common.resolve_device(opts)
-    _, scores_dir, meshes_dir = common.output_dirs(opts, f"incremental_{opts.frame_tuple_type}")
+    base, scores_dir, meshes_dir = common.output_dirs(opts, f"incremental_{opts.frame_tuple_type}")
     if model is None:
         model = common.init_or_load_params(opts, common.build_model(opts))
     model.eval()
@@ -143,7 +146,7 @@ def run(opts: Options, model=None):
         feat_cache: "OrderedDict[str, torch.Tensor]" = OrderedDict()
         scan_metrics = ResultsAverager(opts.name, f"scan {scan_id}")
         scan_t0 = time.perf_counter()
-        for cur_np, src_np in loader:
+        for frame_idx, (cur_np, src_np) in enumerate(loader):
             cur, src = common.device_batch(cur_np, src_np, device)
             t0 = time.perf_counter()
             ids = src_np["frame_id_string"][0]
@@ -170,6 +173,14 @@ def run(opts: Options, model=None):
             scan_metrics.update_results(fm)
             all_frame_avg.update_results(fm)
             frames += 1
+            if opts.dump_depth_visualization:
+                quick_viz_export(
+                    os.path.join(base, "viz"), f"{scan_id.replace('/', '_')}_{frame_idx:06d}",
+                    image_bhw3=cur_np["image_bhw3"][0],
+                    depth_pred=out["depth_pred_s0_bhw1"][0].float().cpu().numpy(),
+                    depth_gt=cur_np["depth_bhw1"][0],
+                    hint_depth=hint["depth_hint_bhw1"][0].cpu().numpy(),
+                    fixed_min_max=opts.viz_fixed_min_max)
         scan_time += time.perf_counter() - scan_t0
 
         scan_metrics.compute_final_average()

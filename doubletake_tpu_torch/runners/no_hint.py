@@ -47,7 +47,6 @@ def run(opts: Options, model=None):
     ``model``: an already built and weighted model (else built from opts and
     initialised or loaded by ``common.init_or_load_params``).
     """
-    common.reject_unported(opts)
     device = common.resolve_device(opts)
     base, scores_dir, meshes_dir = common.output_dirs(opts, f"no_hint_{opts.frame_tuple_type}")
     if model is None:

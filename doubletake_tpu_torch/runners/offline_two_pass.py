@@ -94,7 +94,6 @@ def run(opts: Options, model=None):
     """
     if "hint" not in opts.feature_volume_type:
         raise ValueError("offline two-pass mode needs a hint model (mlp_mesh_hint_feature_volume)")
-    common.reject_unported(opts)
     device = common.resolve_device(opts)
     _, scores_dir, meshes_dir = common.output_dirs(opts, f"offline_two_pass_{opts.frame_tuple_type}")
     if model is None:

@@ -18,6 +18,16 @@ src/doubletake/tools/tsdf.py):
     path, never Pallas), a dense plain-torch pass on the volume's device
     that also fuses the colours; its values and weights come out of
     ``ops.integrate.voxel_update_plain``, the kernel's plain version.
+  * ``integrate_depth(cull=True)`` takes K2 as ``cull=False`` does: the JAX
+    package's cull (chunks that cannot update compacted and scattered back,
+    a TPU strategy for the same update of the same voxels) is K2's box cull
+    on the card, so the result is bit-equal either way; the frustum-chunk
+    diagnostics (``frustum_chunk_fraction``, ``choose_cull_fraction``) give
+    the JAX package's fractions. ``integrate_batch`` fuses frames in order,
+    one K2 launch each (the running mean depends on the order).
+  * ``sample_tsdf`` — trilinear or nearest values, weights or colours at
+    world points (align_corners=True, tsdf.py:277-339), on
+    ``ops.grid_sample.grid_sample_3d``.
   * ``raycast`` — the hint renderer: a dense coarse-then-fine march along
     camera z to the first observed + -> - zero crossing, linear
     refinement, and the trilinear fusion weight at the surface, for one
@@ -39,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from doubletake_tpu_torch.ops.grid_sample import grid_sample_3d
 from doubletake_tpu_torch.ops.integrate import fused_integrate, voxel_update_plain
 from doubletake_tpu_torch.utils.geometry import linspace01
 
@@ -77,6 +88,16 @@ class TSDF:
                    weights=torch.zeros(dims, dtype=torch.float32, device=device),
                    origin=origin, voxel_size=voxel_size, colors=colors)
 
+    @classmethod
+    def from_mesh_bounds(cls, verts_min, verts_max, voxel_size: float, device="cpu"):
+        """A volume over mesh vertex bounds with a 3-voxel buffer
+        (tsdf.py:100-120)."""
+        b = {}
+        for i, axis in enumerate(("x", "y", "z")):
+            b[f"{axis}min"] = float(verts_min[i]) - 3 * voxel_size
+            b[f"{axis}max"] = float(verts_max[i]) + 3 * voxel_size
+        return cls.from_bounds(b, voxel_size, device=device)
+
     def save(self, path: str):
         """npz with float16 tsdf_values / tsdf_weights (and tsdf_colors),
         float32 origin and the voxel size — the JAX package's format."""
@@ -103,6 +124,13 @@ class TSDF:
         )
 
 
+def voxel_world_coords(tsdf: TSDF) -> torch.Tensor:
+    """World coordinates of every voxel's sample point, (X, Y, Z, 3)."""
+    grids = torch.meshgrid(*[torch.arange(d, dtype=torch.float32, device=tsdf.values.device)
+                             for d in tsdf.dims], indexing="ij")
+    return tsdf.origin + torch.stack(grids, -1) * tsdf.voxel_size
+
+
 @dataclasses.dataclass(frozen=True)
 class FusionConfig:
     """Fusion hyperparameters (TSDFFuser defaults, tsdf.py:347-363)."""
@@ -116,8 +144,15 @@ class FusionConfig:
 
 
 def integrate_depth(tsdf: TSDF, depth_hw1, cam_T_world_44, K_44, config: FusionConfig,
-                    depth_mask_hw1=None, image_hw3=None) -> TSDF:
+                    depth_mask_hw1=None, image_hw3=None, cull: Optional[bool] = None,
+                    cull_max_fraction: float = 0.5) -> TSDF:
     """Fuse one depth map into ``tsdf`` in place and return it.
+
+    ``cull`` / ``cull_max_fraction``: the JAX package's frustum-chunk cull
+    (tsdf.py:330-331), which computes the same update of the same voxels
+    as its dense pass. Here both values take the same path: K2, which skips
+    the boxes of voxels that cannot update, on a CUDA volume, the plain
+    version on the CPU; so the result is bit-equal whatever they say.
 
     With colours in the volume and an (H, W, 3) image in [0, 1] at the
     depth's size, the colours are fused too (the JAX ``_voxel_update``,
@@ -125,6 +160,8 @@ def integrate_depth(tsdf: TSDF, depth_hw1, cam_T_world_44, K_44, config: FusionC
     running mean weighted by the old and the frame's weights, stored as
     float16. That pass is dense plain torch (the JAX package's XLA path);
     every other volume takes K2."""
+    if not 0.0 < cull_max_fraction <= 1.0:
+        raise ValueError(f"cull_max_fraction={cull_max_fraction} is not in (0, 1]")
     truncation = config.truncation_voxels * tsdf.voxel_size
     if depth_mask_hw1 is not None:
         depth_hw1 = torch.where(depth_mask_hw1, depth_hw1, torch.full_like(depth_hw1, -1.0))
@@ -148,6 +185,94 @@ def integrate_depth(tsdf: TSDF, depth_hw1, cam_T_world_44, K_44, config: FusionC
     tsdf.values.copy_(new_v)
     tsdf.weights.copy_(new_w)
     return tsdf
+
+
+def integrate_batch(tsdf: TSDF, depth_bhw1, cam_T_world_b44, K_b44, config: FusionConfig,
+                    depth_mask_bhw1=None) -> TSDF:
+    """Fuse a batch of depth maps in order, one ``integrate_depth`` each (the
+    JAX package's ``lax.scan``; the running weighted mean depends on the
+    order, as the reference's per-batch loop, tsdf.py:444)."""
+    for i in range(depth_bhw1.shape[0]):
+        integrate_depth(tsdf, depth_bhw1[i], cam_T_world_b44[i], K_b44[i], config,
+                        None if depth_mask_bhw1 is None else depth_mask_bhw1[i])
+    return tsdf
+
+
+def _frustum_chunk_mask(tsdf: TSDF, P_34, h: int, w: int, max_depth: float, cz: int):
+    """Conservative per-chunk camera-frustum mask, (X*Y*(Z//cz),) bool (the
+    JAX package's, tsdf.py:224-283). A chunk is a z-run of ``cz`` voxel
+    sample points at one (i, j); it is kept unless one of six planes (behind
+    the camera, beyond max_depth, or a pixel outside the image widened by
+    one) holds the whole run on its outer side, by the run's min corner."""
+    X, Y, Z = tsdf.dims
+    nzc = Z // cz
+    vs = tsdf.voxel_size
+    dev = tsdf.values.device
+
+    def lin(row):  # a . p + b with p = origin + (i, j, k) * vs
+        a = row[:3]
+        return a * vs, row[3] + torch.dot(a, tsdf.origin)
+
+    a1, b1 = lin(P_34[0])
+    a2, b2 = lin(P_34[1])
+    a3, b3 = lin(P_34[2])
+    planes = [(-a3, -b3 - vs),                                # z >= -vs
+              (a3, b3 - (max_depth + vs)),                    # z <= max_depth + vs
+              (-a1 - a3, -b1 - b3),                           # px >= -1
+              (a1 - (w + 1) * a3, b1 - (w + 1) * b3),         # px <= w + 1
+              (-a2 - a3, -b2 - b3),                           # py >= -1
+              (a2 - (h + 1) * a3, b2 - (h + 1) * b3)]         # py <= h + 1
+    ii = torch.arange(X, dtype=torch.float32, device=dev)[:, None, None]
+    jj = torch.arange(Y, dtype=torch.float32, device=dev)[None, :, None]
+    kk = (torch.arange(nzc, dtype=torch.float32, device=dev) * cz)[None, None, :]
+    keep = torch.ones((X, Y, nzc), dtype=torch.bool, device=dev)
+    for a, b in planes:
+        min_corner = (a[0] * ii + a[1] * jj + a[2] * kk
+                      + torch.clamp(a[2] * float(cz - 1), max=0.0) + b)
+        keep &= min_corner <= 0.0
+    return keep.reshape(-1)
+
+
+def _pick_cz(Z: int) -> int:
+    """Chunk length along z: the divisor of Z closest to 32, in [8, 64]."""
+    cands = [d for d in range(8, 65) if Z % d == 0]
+    return min(cands, key=lambda d: abs(d - 32)) if cands else 8
+
+
+def frustum_chunk_fraction(tsdf: TSDF, cam_T_world_44, K_44, config: FusionConfig,
+                           h: int, w: int) -> float:
+    """Fraction of the volume's z-chunks that intersect the camera frustum
+    (the JAX package's diagnostic for ``cull_max_fraction``)."""
+    P_34 = torch.matmul(K_44, cam_T_world_44)[:3]
+    mask = _frustum_chunk_mask(tsdf, P_34, h, w, config.max_depth, _pick_cz(tsdf.dims[2]))
+    return float(mask.float().mean())
+
+
+def choose_cull_fraction(tsdf: TSDF, cam_T_world_n44, K_44, config: FusionConfig, h: int,
+                         w: int, margin: float = 1.25, floor: float = 0.05) -> float:
+    """``cull_max_fraction`` from a trajectory's poses: the largest frame's
+    frustum chunk fraction times ``margin``, within [floor, 1]."""
+    frac = max(frustum_chunk_fraction(tsdf, p, K_44, config, h, w) for p in cam_T_world_n44)
+    return float(min(1.0, max(floor, frac * margin)))
+
+
+def world_to_sample_coords(tsdf: TSDF, world_points_n3):
+    """World points -> [-1, 1] sample coordinates, align_corners=True
+    (tsdf.py:300-312)."""
+    vox = (world_points_n3 - tsdf.origin) / tsdf.voxel_size
+    dims = torch.tensor(tsdf.dims, dtype=torch.float32, device=vox.device)
+    return (vox / (dims - 1.0)) * 2.0 - 1.0
+
+
+def sample_tsdf(tsdf: TSDF, world_points_n3, what: str = "tsdf", method: str = "bilinear"):
+    """Values (``what="tsdf"``, (N,)), weights (``"weights"``, (N,)) or
+    colours (``"colors"``, (N, 3)) at world points: trilinear or nearest,
+    zero outside the volume (tsdf.py:277-339)."""
+    pts = world_to_sample_coords(tsdf, world_points_n3)
+    if what == "colors":
+        return grid_sample_3d(tsdf.colors.float(), pts, mode=method)
+    vol = tsdf.values if what == "tsdf" else tsdf.weights
+    return grid_sample_3d(vol[..., None], pts, mode=method)[:, 0]
 
 
 def auto_raycast_samples(voxel_size: float, min_depth: float, max_depth: float,

@@ -34,7 +34,12 @@ from doubletake_tpu.runners import incremental as jinc
 from doubletake_tpu_torch.checkpoints.convert import variables_to_state_dict
 from doubletake_tpu_torch.options import Options
 from doubletake_tpu_torch.runners import common, incremental, no_hint, offline_two_pass, revisit
-from doubletake_tpu_torch.scripts import create_visibility_volume, mesh_eval
+from doubletake_tpu_torch.scripts import (
+    create_visibility_volume,
+    mesh_eval,
+    render_hints,
+    render_trajectory,
+)
 from doubletake_tpu_torch.tools.tsdf import TSDF
 from doubletake_tpu_torch.training import train_loop
 
@@ -162,6 +167,10 @@ def test_cuda_is_the_default_device():
         create_visibility_volume.main(["--dataset", "synthetic"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mesh_eval.main(["--pred_dir", ".", "--gt_dir", "."])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_hints.main(["--depth_cache_dir", ".", "--render_output_dir", "."])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_trajectory.main(["--tsdf_path", "missing.npz"])
 
 
 def test_port_imports_no_jax():
@@ -187,7 +196,11 @@ assert {"doubletake_tpu_torch.train", "doubletake_tpu_torch.losses",
         "doubletake_tpu_torch.tools.marching_cubes", "doubletake_tpu_torch.eval.visibility",
         "doubletake_tpu_torch.eval.mesh_eval",
         "doubletake_tpu_torch.scripts.create_visibility_volume",
-        "doubletake_tpu_torch.scripts.mesh_eval"} <= set(names), names
+        "doubletake_tpu_torch.scripts.mesh_eval",
+        "doubletake_tpu_torch.scripts.render_hints",
+        "doubletake_tpu_torch.scripts.render_trajectory",
+        "doubletake_tpu_torch.tools.partial_fuser", "doubletake_tpu_torch.tools.viz_renderer",
+        "doubletake_tpu_torch.training.distributed"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -1,13 +1,14 @@
 """The port's shared runner pieces against the JAX package's, on the CPU:
-the lazy (tolerant) weight load, the hint-volume fuser, the option the port
-refuses instead of ignoring, and the serving options ``raycast_mip`` and
-``split_timing``.
+the lazy (tolerant) weight load, the hint-volume fuser, and the serving
+options ``raycast_mip``, ``split_timing`` and ``dump_depth_visualization``.
 
 Lazy load: a JAX npz of another initialisation with one layer's shape
 changed is merged over the same starting weights by both packages; every
 entry of the port's state dict must equal the bridge's conversion of the
 JAX merge, bit for bit.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -104,15 +105,6 @@ def test_hint_fuser_matches_jax():
         (jcfg.min_depth, jcfg.max_depth, jcfg.extended_neg_truncation) == (0.5, 3.0, True)
 
 
-@pytest.mark.parametrize("runner", [incremental, no_hint, offline_two_pass, revisit],
-                         ids=lambda m: m.__name__.split(".")[-1])
-def test_depth_visualization_is_not_ported_yet(runner, tmp_path):
-    o = options(Options, device="cpu", dump_depth_visualization=True,
-                output_base_path=str(tmp_path))
-    with pytest.raises(ValueError, match="dump_depth_visualization is not ported yet"):
-        runner.run(o)
-
-
 def short_dataset(*a, **k):
     return registry.dataset_from_opts(*a, num_frames=12, **k)
 
@@ -198,6 +190,58 @@ def test_raycast_mip(runner, tmp_path, monkeypatch):
     assert float((dv > 1e-3).mean()) <= 1e-4
     np.testing.assert_allclose(weights.astype(np.float64).sum(),
                                jweights.astype(np.float64).sum(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("runner", [incremental, no_hint, offline_two_pass, revisit],
+                         ids=lambda m: m.__name__.split(".")[-1])
+def test_depth_visualization(runner, tmp_path, monkeypatch):
+    """Only the incremental runner reads ``dump_depth_visualization``, as in
+    the JAX package: over the 12-frame scan it writes one panel a frame
+    under ``<base>/viz``, with the JAX incremental run's names, and each
+    panel (image, GT, prediction, hint) within one 8-bit level of the JAX
+    run's on all but 1e-3 of its values (the depths agree to the chained
+    step's bounds, and a hint pixel's validity may flip). The other runners
+    give the same outputs with and without it and write no panel."""
+    from PIL import Image
+
+    name = runner.__name__.split(".")[-1]
+    kw = dict(EXTRA[name], run_fusion=True, output_base_path=str(tmp_path))
+    popts = options(Options, device="cpu", name="viz", dump_depth_visualization=True, **kw)
+    ds = short_dataset(popts, split="test", limit_to_scan_id="synth0")
+    model = common.build_model(popts)
+    if name != "incremental":
+        model = common.init_or_load_params(popts, model)
+        res, vols = saved_run(runner, popts, model, tmp_path, monkeypatch)
+        off = options(Options, device="cpu", name="plain", **kw)
+        res0, vols0 = saved_run(runner, off, model, tmp_path, monkeypatch)
+        assert depth_metrics(res["frame_avg"]) == depth_metrics(res0["frame_avg"])
+        for scan, (values, weights) in vols0.items():
+            np.testing.assert_array_equal(vols[scan][0], values)
+            np.testing.assert_array_equal(vols[scan][1], weights)
+        assert not list(tmp_path.glob("viz/*/viz"))
+        return
+
+    from doubletake_tpu.datasets import registry as jregistry
+    from doubletake_tpu.runners import incremental as jincremental
+
+    jopts = options(JaxOptions, name="jax", dump_depth_visualization=True, **kw)
+    jmodel = jcommon.build_model(jopts)
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                     *jcommon.device_batch(*collate([ds[0]])))
+    model.load_state_dict(variables_to_state_dict(jax.device_get(variables)))
+    monkeypatch.setattr(jincremental, "dataset_from_opts",
+                        lambda *a, **k: jregistry.dataset_from_opts(*a, num_frames=12, **k))
+    jincremental.run(jopts, variables=variables)
+    res, _ = saved_run(runner, popts, model, tmp_path, monkeypatch)
+    jdir = tmp_path / "jax" / "incremental_default" / "viz"
+    pdir = tmp_path / "viz" / "incremental_default" / "viz"
+    names = sorted(os.listdir(pdir))
+    assert names == sorted(os.listdir(jdir)) and len(names) == res["frames"] > 1
+    for png in names:
+        a = np.asarray(Image.open(jdir / png)).astype(int)
+        b = np.asarray(Image.open(pdir / png)).astype(int)
+        assert a.shape == b.shape == (2 * 32, 2 * 64, 3), png      # image, GT / pred, hint
+        assert float((np.abs(a - b) > 1).mean()) <= 1e-3, png
 
 
 def test_split_timing(tmp_path, monkeypatch):
