@@ -143,8 +143,33 @@ Phases (each one fails the run on error):
      SAMPLE_TOL; ``scripts.render_trajectory`` on phase 4's volume over
      TRAJECTORY_FRAMES frames (ms a frame, mp4 or PNG sequence); a 12-frame
      incremental run with ``dump_depth_visualization``: one panel a frame.
+  20. the evaluation chain through files: (a) a ScanNet-layout scan under
+     ``build/scannet_synth`` (``write_scannet_scan``: 96 frames of the
+     synthetic room at 640x480, JPEG colour, uint16 mm depth PNGs, pose
+     files, frames 40-71 with ``-inf`` poses, so the online keyframe buffer
+     resets); (b) ``scripts.precompute_valid_frames`` (64 lines),
+     ``scripts.generate_test_tuples`` for the four types and
+     ``scripts.generate_train_tuples`` at 8 and 2 frames, each file equal to
+     ``tools.tuple_generation`` on the poses written, every id a valid
+     frame; line counts and short (< 8 frames) lines per type; (c)
+     ``scripts.strip_checkpoint`` on phase 11's last training state, the
+     ``.ckpt`` loaded by ``init_or_load_params`` bit-equal to phase 11's
+     model; (d) ``scripts.evaluation`` on the card (the flagship at 512x384,
+     fast cost volume, the stripped weights) through the ScanNet reader over
+     the default tuples of 8 frames (the short ones dropped into a second
+     file): K1 and K2 once a kept line, finite metrics against the PNG
+     depths, the PLY, loop and step maps/s beside phase 4's; a short line
+     refused by the K1 wrapper (``ValueError``); and the first frames'
+     whole-step parity (phase 5's budgets) over the room's bounds;
+     (e) the reader's first CUBE_FRAMES GT depths fused through K2 into
+     its own +-10 m cube (the volume of (d)) bit-equal to the plain version
+     run slab by slab (``cube_parity``); all its GT depths and poses fused
+     through K2 at 0.02 m / 3.5 m over the room, meshed, the visibility
+     CLI over the scan's
+     dense_offline tuples and ``scripts.mesh_eval`` against the analytic
+     room: accuracy < 2 cm, precision > 0.95.
   Phases 15, 16 and 19 run right after phase 10, on its model; 17 after 11,
-  18 after 17; phase 14 last.
+  18 after 17; phase 14, then phase 20, last.
   In phases 7-10 and 12 both kernels must launch as often as the path's batches and
   fused frames imply (counted from the dataset's length and the batch
   size), the metrics must be finite, hint coverage (pass 2, rescan) > 0,
@@ -199,6 +224,17 @@ DP_TIMEOUT_S, DP_JOIN_TIMEOUT_S = 300.0, 420.0
 # and neighbouring TSDF values differ by up to 2
 SAMPLE_TOL = 2 * 2 * 2.0 ** -15
 TRAJECTORY_FRAMES = 8
+# phase 20: the ScanNet-layout scan (frames SCANNET_LOST have -inf poses: a
+# gap of 32 > 30 frames resets the online keyframe buffer), the tuple types,
+# and the suffix of the default tuples kept for the 8-view model
+SCANNET_SCAN, SCANNET_FRAMES, SCANNET_LOST = "scene_synth0", 96, range(40, 72)
+TUPLE_TYPES = ("default", "offline", "dense", "dense_offline")
+SCANNET_KEPT_SUFFIX = "_eight_view_deepvmvs_8frames.txt"
+SCANNET_SHORT_SUFFIX = "_eight_view_deepvmvs_short.txt"
+# the reader's +-10 m cube held to the plain version over its first frames,
+# in x-slabs of CUBE_SLAB voxels (the plain version's temporaries over the
+# whole cube would take tens of GiB)
+CUBE_FRAMES, CUBE_SLAB = 8, 100
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -679,9 +715,10 @@ def run_main_path(opts, path="main path", model=None):
     return model, summary
 
 
-def whole_step_parity(opts, model):
+def whole_step_parity(opts, model, scan_id="synth0", bounds_from=None):
     """The first frames through the kernel path and the plain path, chained,
-    same weights and starting volume."""
+    same weights and starting volume (over ``bounds_from``'s GT bounds when
+    given, else the dataset's)."""
     import torch
 
     from doubletake_tpu_torch.data.loader import DataLoader
@@ -694,8 +731,8 @@ def whole_step_parity(opts, model):
     ds = dataset_from_opts(opts, split=opts.split, include_full_res_depth=True,
                            pass_frame_id=True)
     loader = DataLoader(ds, batch_size=1, shuffle=False, num_workers=2)
-    vol_k, cfg = common.make_fuser(opts, ds, "synth0", device)
-    vol_p, _ = common.make_fuser(opts, ds, "synth0", device)
+    vol_k, cfg = common.make_fuser(opts, bounds_from or ds, scan_id, device)
+    vol_p, _ = common.make_fuser(opts, bounds_from or ds, scan_id, device)
     samples = common.resolve_raycast_samples(opts, vol_k.voxel_size, opts.fusion_max_depth)
     step = incremental.make_step(model, cfg, *hint_hw(opts), samples, opts.fusion_max_depth,
                                  opts)
@@ -819,6 +856,20 @@ def require_finite(path, metrics, keys):
             raise RuntimeError(f"{path}: metric {key} missing or not finite")
 
 
+def npz_shape(path, key):
+    """The shape of array ``key`` of an npz, read from its header alone (a
+    compressed volume is not decompressed)."""
+    import zipfile
+
+    import numpy as np
+
+    with zipfile.ZipFile(path) as z, z.open(f"{key}.npy") as f:
+        version = np.lib.format.read_magic(f)
+        read = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}[version]
+        return read(f)[0]
+
+
 def check_mesh(path, meshes_dir, scan, exported, colors=False):
     """The run's ``<scan>.ply``: it loads, has faces, lies inside the volume
     of ``<scan>_tsdf.npz``, carries vertex colours exactly when ``colors``,
@@ -828,9 +879,11 @@ def check_mesh(path, meshes_dir, scan, exported, colors=False):
     from doubletake_tpu_torch.tools.marching_cubes import load_ply
 
     verts, faces, rgb = load_ply(os.path.join(meshes_dir, f"{scan}.ply"), return_colors=True)
-    with np.load(os.path.join(meshes_dir, f"{scan}_tsdf.npz")) as vol:
+    npz = os.path.join(meshes_dir, f"{scan}_tsdf.npz")
+    with np.load(npz) as vol:
         lo = vol["origin"].astype(np.float64)
-        hi = lo + (np.array(vol["tsdf_values"].shape) - 1) * float(vol["voxel_size"])
+        voxel = float(vol["voxel_size"])
+    hi = lo + (np.array(npz_shape(npz, "tsdf_values")) - 1) * voxel
     inside = bool(len(verts) and (verts >= lo - 1e-4).all() and (verts <= hi + 1e-4).all())
     row = {"export_ms": exported["export_s"] * 1e3, "verts": len(verts), "faces": len(faces),
            "vertex_colors": rgb is not None}
@@ -2180,6 +2233,384 @@ def run_extras(out_dir, model, main_opts):
             "seconds": time.perf_counter() - t0}
 
 
+# ------------------------------------------- the evaluation chain through files
+
+
+def write_scannet_scan(root, scan=SCANNET_SCAN, num_frames=SCANNET_FRAMES, lost=SCANNET_LOST,
+                       width=640, height=480, seed=0, threads=8):
+    """A ScanNet-layout scan of ``SyntheticScene(seed)`` along
+    ``synthetic_trajectory(num_frames, seed)`` under ``root/scans_test/<scan>``
+    (``root/scans`` links to ``scans_test``, the train split's folder):
+    ``sensor_data/frame-%06d.color.jpg``, ``.depth.png`` (uint16 mm) and
+    ``.pose.txt`` (world_T_cam; all ``-inf`` for the frames in ``lost``,
+    ScanNet's mark for lost tracking), ``intrinsic/intrinsic_depth.txt`` (the
+    synthetic K at ``width`` x ``height``) and ``<scan>.txt``. Returns the
+    poses written, None where lost."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from doubletake_tpu_torch.datasets.synthetic import SyntheticScene, synthetic_trajectory
+
+    scan_dir = os.path.join(root, "scans_test", scan)
+    sensor = os.path.join(scan_dir, "sensor_data")
+    os.makedirs(sensor)
+    os.makedirs(os.path.join(scan_dir, "intrinsic"))
+    if not os.path.exists(os.path.join(root, "scans")):
+        os.symlink("scans_test", os.path.join(root, "scans"))
+    # the synthetic dataset's K (fx = fy = 0.58 x width, centred)
+    K = np.eye(4)
+    K[0, 0] = K[1, 1] = 0.58 * width
+    K[0, 2], K[1, 2] = width / 2, height / 2
+    np.savetxt(os.path.join(scan_dir, "intrinsic", "intrinsic_depth.txt"), K)
+    with open(os.path.join(scan_dir, f"{scan}.txt"), "w") as f:
+        f.write(f"colorHeight = {height}\ncolorWidth = {width}\ndepthHeight = {height}\n"
+                f"depthWidth = {width}\nfx_depth = {K[0, 0]}\nfy_depth = {K[1, 1]}\n"
+                f"mx_depth = {K[0, 2]}\nmy_depth = {K[1, 2]}\nnumColorFrames = {num_frames}\n"
+                f"numDepthFrames = {num_frames}\n")
+    scene = SyntheticScene(seed=seed)
+    poses = synthetic_trajectory(num_frames, seed)
+
+    def write(i):
+        rgb, depth = scene.render(poses[i], K, height, width)
+        path = os.path.join(sensor, f"frame-{i:06d}")
+        Image.fromarray(np.round(rgb * 255).astype(np.uint8)).save(f"{path}.color.jpg",
+                                                                    quality=95)
+        mm = np.where(np.isfinite(depth), np.round(depth * 1000.0), 0.0)
+        Image.fromarray(mm.astype(np.uint16)).save(f"{path}.depth.png")
+        np.savetxt(f"{path}.pose.txt",
+                   np.full((4, 4), -np.inf) if i in lost else poses[i])
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(write, range(num_frames)))
+    return [None if i in lost else p for i, p in enumerate(poses)]
+
+
+class RoomBounds:
+    """Fusion bounds of the synthetic room, for ``common.make_fuser`` (and
+    either package's ``scene_bounds_for_fusion``): the ScanNet reader has
+    none, so its runs fuse into a +-10 m cube."""
+
+    def __init__(self, seed=0):
+        from doubletake_tpu_torch.datasets.synthetic import SyntheticScene
+
+        self.scene = SyntheticScene(seed=seed)
+
+    def get_gt_mesh_bounds(self, scan_id):
+        return self.scene.room_min, self.scene.room_max
+
+
+def slab_parity(name, vol, frames, kw, slab=CUBE_SLAB):
+    """K2's ``vol`` after ``frames`` (depth (H, W), P (3, 4)), fused from a
+    fresh volume, against the plain version chained over the same frames
+    slab by slab along x from a fresh slab (values -1, weights 0): each slab
+    keeps its voxels' indices in the whole volume (``first_voxel``), so its
+    arithmetic is the whole volume's, and the plain temporaries stay a
+    slab's. Bit-equal or it raises."""
+    import torch
+
+    from doubletake_tpu_torch.ops import integrate as ig
+
+    X = vol.values.shape[0]
+    bad = observed = 0
+    t0 = time.perf_counter()
+    for x0 in range(0, X, slab):
+        x1 = min(x0 + slab, X)
+        pv = -torch.ones_like(vol.values[x0:x1])
+        pw = torch.zeros_like(vol.weights[x0:x1])
+        for depth, P in frames:
+            pv, pw = ig.integrate_plain(pv, pw, depth, P, vol.origin, first_voxel=(x0, 0, 0),
+                                        **kw)
+        bad += int((vol.values[x0:x1] != pv).sum()) + int((vol.weights[x0:x1] != pw).sum())
+        observed += int((pw > 0).sum())
+    sync()
+    log(f"K2 integrate, {name}, on {tuple(vol.values.shape)} over {len(frames)} frames vs the "
+        f"plain version in x-slabs of {slab}: {bad} differing elements, {observed} observed "
+        f"voxels ({time.perf_counter() - t0:.1f} s)")
+    if bad != 0 or observed == 0:
+        raise RuntimeError(f"K2 differs from its plain version on {bad} elements, or fused "
+                           f"nothing ({name}, {observed} observed voxels)")
+    return {"dims": list(vol.values.shape), "frames": len(frames), "slab": slab,
+            "differing": bad, "observed": observed}
+
+
+def cube_parity(opts, ds, scan, frames, dims):
+    """``frames`` (GT depth, cam_T_world, K, _) fused through K2 by
+    ``integrate_depth`` into the volume ``common.make_fuser`` gives ``ds``
+    (the ScanNet reader's +-10 m cube, which must have the evaluation
+    run's ``dims``), held bit-equal to the plain version slab by slab."""
+    import torch
+
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.runners import common
+    from doubletake_tpu_torch.tools.tsdf import integrate_depth
+
+    torch.cuda.empty_cache()
+    cube, cfg = common.make_fuser(opts, ds, scan, opts.device)
+    if list(cube.values.shape) != list(dims):
+        raise RuntimeError(f"the reader's volume {list(cube.values.shape)} is not the "
+                           f"evaluation's {list(dims)}")
+    before = ig.fused_integrate.launches
+    with torch.no_grad():
+        for depth, cTw, K, _ in frames:
+            integrate_depth(cube, depth, cTw, K, cfg)
+        # the depth and P that integrate_depth gives K2
+        planes = [(depth[..., 0].contiguous(), torch.matmul(K, cTw)[:3].contiguous())
+                  for depth, cTw, K, _ in frames]
+        summary = slab_parity("the reader's cube", cube, planes, fuser_kwargs(cube, cfg))
+    summary["k2_launches"] = ig.fused_integrate.launches - before
+    if summary["k2_launches"] != len(frames):
+        raise RuntimeError(f"the cube took {summary['k2_launches']} K2 launches for "
+                           f"{len(frames)} frames")
+    del cube, planes
+    torch.cuda.empty_cache()
+    return summary
+
+
+def options_argv(opts, keys):
+    """CLI flags that give ``keys`` the values they have in ``opts``."""
+    argv = []
+    for key in keys:
+        value = getattr(opts, key)
+        if isinstance(value, bool):
+            argv += [f"--{key}"] if value else []
+        else:
+            argv += [f"--{key}", str(value)]
+    return argv
+
+
+def run_scannet_path(out_dir, train_dir, main_summary):
+    """Phase 20: a ScanNet-layout scan on disk; its valid frames and tuple
+    files by the port's CLIs; phase 11's training state stripped by the
+    CLI; ``scripts.evaluation`` on the card over the scan's 8-frame default
+    tuples through the ScanNet reader; the reader's GT depths fused and
+    meshed against the analytic room."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from doubletake_tpu_torch.datasets.registry import dataset_from_opts
+    from doubletake_tpu_torch.ops import fused_volume as fv
+    from doubletake_tpu_torch.ops import integrate as ig
+    from doubletake_tpu_torch.options import OptionsHandler
+    from doubletake_tpu_torch.runners import common
+    from doubletake_tpu_torch.scripts import (
+        create_visibility_volume,
+        evaluation,
+        generate_test_tuples,
+        generate_train_tuples,
+        mesh_eval,
+        precompute_valid_frames,
+        strip_checkpoint,
+    )
+    from doubletake_tpu_torch.tools import tuple_generation
+    from doubletake_tpu_torch.tools.marching_cubes import save_ply
+    from doubletake_tpu_torch.utils.io import readlines
+
+    path, scan = "scannet eval", SCANNET_SCAN
+    t_phase = time.perf_counter()
+    summary = {"scan": scan, "frames_on_disk": SCANNET_FRAMES,
+               "lost_frames": [SCANNET_LOST.start, SCANNET_LOST.stop - 1]}
+
+    # (a) the scan on disk
+    root = os.path.join(os.path.dirname(OUT_DIR), "build", "scannet_synth")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    poses = write_scannet_scan(root)
+    summary["write_s"] = time.perf_counter() - t0
+    split_file = os.path.join(root, "scans.txt")
+    with open(split_file, "w") as f:
+        f.write(f"{scan}\n")
+    tuple_dir = os.path.join(root, "tuples")
+    data = ["--dataset", "scannet", "--dataset_path", root, "--dataset_scan_split_file",
+            split_file, "--tuple_info_file_location", tuple_dir]
+
+    # (b) valid frames and tuple files by the CLIs, against the tuple
+    # functions on the poses written (ids, gaps and poses from the writer)
+    t0 = time.perf_counter()
+    written = precompute_valid_frames.main(data + ["--split", "test"])[scan]
+    valid = [i for i, p in enumerate(poses) if p is not None]
+    dists = [i - prev - 1 for prev, i in zip([-1] + valid[:-1], valid)]
+    ids = [f"{i:06d}" for i in valid]
+    valid_poses = [poses[i] for i in valid]
+    if readlines(written) != [f"{scan} {fid} {d}" for fid, d in zip(ids, dists)]:
+        raise RuntimeError(f"{path}: {written} differs from the poses written")
+    files = {}
+    for kind in TUPLE_TYPES:
+        files[kind] = (generate_test_tuples.main(data + ["--split", "test",
+                                                         "--frame_tuple_type", kind]),
+                       tuple_generation.generate_test_tuples(
+                           scan, valid_poses, ids, kind, 8, dists_to_last_valid=dists))
+    for k, suffix in ((8, "_eight_view_train.txt"), (2, "_two_view_train.txt")):
+        files[f"train_{k}"] = (generate_train_tuples.main(data + [
+            "--split", "train", "--num_images_in_tuple", str(k), "--mv_tuple_file_suffix",
+            suffix]), tuple_generation.generate_train_tuples(scan, valid_poses, ids, k))
+    summary["tuples_s"] = time.perf_counter() - t0
+    counts = {}
+    for kind, (file, want) in files.items():
+        with open(file) as f:
+            text = f.read()
+        refs = {fid for line in want for fid in line.split(" ")[1:]}
+        counts[kind] = {"lines": len(want), "file": os.path.relpath(file, root),
+                        "short": sum(len(line.split(" ")) - 1 < 8 for line in want)}
+        if text != "\n".join(want) + "\n" or not want or not refs <= set(ids):
+            raise RuntimeError(f"{path}: {file} differs from the in-process tuples, or "
+                               f"references a frame that is not valid: {counts[kind]}")
+    summary["tuples"] = counts
+    log(f"{path}: wrote {SCANNET_FRAMES} frames ({len(valid)} valid) in "
+        f"{summary['write_s']:.1f} s; tuple files equal to the in-process tuples in "
+        f"{summary['tuples_s']:.1f} s: " + ", ".join(
+            f"{k} {c['lines']} lines ({c['short']} short)" for k, c in counts.items()))
+
+    # (c) phase 11's last training state stripped, loaded bit-equal
+    states = sorted(f for f in os.listdir(os.path.join(train_dir, "checkpoints"))
+                    if f.startswith("step_") and f.endswith(".pt"))
+    src = os.path.join(train_dir, "checkpoints", states[-1])
+    ckpt = strip_checkpoint.main(["--src", src, "--dst", os.path.join(out_dir,
+                                                                      "scannet_eval.ckpt")])
+    def eval_argv(suffix, name):
+        return data + options_argv(flagship_options(out_dir), (
+            "model_type", "feature_volume_type", "image_encoder_name", "matching_encoder_type",
+            "depth_decoder_name", "cv_encoder_type", "loss_type", "fill_depth_hints",
+            "image_width", "image_height", "batch_size", "fast_cost_volume", "depth_fuser",
+            "random_seed", "device")) + [
+            "--split", "test", "--num_workers", "4", "--name", name, "--output_base_path",
+            out_dir, "--single_debug_scan_id", scan, "--mv_tuple_file_suffix", suffix,
+            "--load_weights_from_checkpoint", ckpt]
+
+    argv = eval_argv(SCANNET_KEPT_SUFFIX, "chip_smoke_scannet")
+    opts = evaluation.score_options(OptionsHandler(argv).parse_and_merge_options())
+    model = common.init_or_load_params(opts, common.build_model(opts))
+    loaded = model.state_dict()
+    trained = torch.load(src, map_location="cpu", weights_only=True)["model"]
+    final = torch.load(os.path.join(train_dir, "final_weights.ckpt"), map_location="cpu",
+                       weights_only=True)["state_dict"]
+    for name, ref in (("the training state", trained), ("phase 11's final .ckpt", final)):
+        if sorted(loaded) != sorted(ref) or not all(torch.equal(loaded[k].cpu(), ref[k])
+                                                    for k in ref):
+            raise RuntimeError(f"{path}: the stripped .ckpt does not load {name}'s weights")
+    summary["stripped"] = {"src": states[-1], "tensors": len(loaded)}
+
+    # (d) scripts.evaluation on the card over the 8-frame default tuples
+    default = readlines(files["default"][0])
+    kept = [line for line in default if len(line.split(" ")) - 1 == 8]
+    with open(os.path.join(tuple_dir, f"test{SCANNET_KEPT_SUFFIX}"), "w") as f:
+        f.write("\n".join(kept) + "\n")
+    summary["kept_lines"], summary["dropped_lines"] = len(kept), len(default) - len(kept)
+    log(f"{path}: {len(kept)} of {len(default)} default lines have 8 frames; "
+        f"{len(default) - len(kept)} dropped")
+    torch.cuda.reset_peak_memory_stats()
+    fv.fused_feature_volume.launches = 0
+    ig.fused_integrate.launches = 0
+    t0 = time.perf_counter()
+    res = evaluation.main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"fused_volume": fv.fused_feature_volume.launches,
+                "integrate": ig.fused_integrate.launches}
+    expected = {"fused_volume": len(kept), "integrate": len(kept)}
+    if launches != expected or res["frames"] != len(kept):
+        raise RuntimeError(f"{path}: launches {launches}, frames {res['frames']}, "
+                           f"expected {expected}")
+    fa = res["frame_avg"]
+    require_finite(path, fa, ("abs_diff", "abs_rel", "a5", "frame_time", "hint_time",
+                              "model_time", "fuse_time", "hint_coverage"))
+    meshes_dir = os.path.join(out_dir, opts.name, "incremental_default", "meshes")
+    dims = list(npz_shape(os.path.join(meshes_dir, f"{scan}_tsdf.npz"), "tsdf_weights"))
+    summary.update({
+        "launches": launches, "wall_s": wall, "frames": res["frames"],
+        # the CLI's wall outside its scan loop: the model and its weights,
+        # the volume, its npz and the mesh export
+        "outside_loop_s": wall - res["scan_time"],
+        "maps_per_s": res["frames"] / res["scan_time"],
+        "step_maps_per_s": 1.0 / fa["frame_time"],
+        "phase4_maps_per_s": main_summary["maps_per_s"],
+        "phase4_step_maps_per_s": main_summary["step_maps_per_s"],
+        "frame_ms": fa["frame_time"] * 1e3, "hint_ms": fa["hint_time"] * 1e3,
+        "model_ms": fa["model_time"] * 1e3, "fuse_ms": fa["fuse_time"] * 1e3,
+        "hint_coverage": fa["hint_coverage"], "abs_diff": fa["abs_diff"],
+        "abs_rel": fa["abs_rel"], "volume_dims": dims,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "mesh": check_mesh(path, meshes_dir, scan, res["meshes"][scan]),
+    })
+    log(f"{path}: {res['frames']} frames through the ScanNet reader, "
+        f"{summary['maps_per_s']:.2f} maps/s over the scan loop (phase 4: "
+        f"{main_summary['maps_per_s']:.2f}), {summary['step_maps_per_s']:.2f} maps/s by mean "
+        f"step (phase 4: {main_summary['step_maps_per_s']:.2f}); hint coverage "
+        f"{fa['hint_coverage']:.3f}, Abs-Diff {fa['abs_diff']:.4f} m vs the PNG depths; volume "
+        f"{dims}, peak {summary['peak_mem_gib']:.2f} GiB; launches {launches}")
+    # a line of fewer than 8 frames: the 8-view model must refuse it (the K1
+    # wrapper takes only the MLP width of the line's views)
+    short = next(line for line in default if len(line.split(" ")) - 1 < 8)
+    with open(os.path.join(tuple_dir, f"test{SCANNET_SHORT_SUFFIX}"), "w") as f:
+        f.write(short + "\n")
+    try:
+        evaluation.main(eval_argv(SCANNET_SHORT_SUFFIX, "chip_smoke_scannet_short"))
+    except ValueError as e:
+        if "fused volume kernel takes an MLP" not in str(e):
+            raise
+        summary["short_line"] = {"line": short, "error": str(e)}
+    else:
+        raise RuntimeError(f"{path}: the short line '{short}' went through the 8-view model")
+    log(f"{path}: the short line '{short}' is refused: {summary['short_line']['error']}")
+    # the first frames, kernel path against plain path, over the room's
+    # bounds (the plain model and hint renders are the parity's subject; K2
+    # on the reader's cube is held to the plain version in (e))
+    summary["parity"] = whole_step_parity(opts, model, scan_id=scan, bounds_from=RoomBounds())
+    del model
+
+    # (e) the reader's GT depths (PNG, mm) and poses: the first frames fused
+    # through K2 into the reader's own +-10 m cube (the volume that (d)
+    # drives) and held bit-equal to the plain version slab by slab; all of
+    # them fused over the room, meshed and scored against the analytic room
+    ds = dataset_from_opts(opts, split="test", limit_to_scan_id=scan,
+                           mv_tuple_file_suffix=None)
+    K0 = torch.from_numpy(ds.load_intrinsics(scan)["K_s0_b44"]).to(opts.device)
+    gt = [(torch.from_numpy(ds.load_target_size_depth_and_mask(scan, fid)[0]).to(opts.device),
+           torch.from_numpy(ds.load_pose(scan, fid)[1]).to(opts.device), K0, None)
+          for fid in ids]
+    summary["cube_parity"] = cube_parity(opts, ds, scan, gt[:CUBE_FRAMES], dims)
+    vol, cfg = common.make_fuser(opts, RoomBounds(), scan, opts.device)
+    before = ig.fused_integrate.launches
+    fuse_ms = timed_fuse(vol, cfg, gt, color=False)
+    gt_launches = ig.fused_integrate.launches - before
+    base = os.path.join(out_dir, "chip_smoke_scannet_mesh")
+    pred_dir, gt_dir = os.path.join(base, "pred"), os.path.join(base, "gt")
+    os.makedirs(pred_dir, exist_ok=True)
+    vol.save(os.path.join(pred_dir, f"{scan}_tsdf.npz"))
+    truth_mesh = check_mesh(path, pred_dir, scan, common.export_scan_mesh(vol, pred_dir, scan))
+    save_ply(os.path.join(gt_dir, f"{scan}.ply"), *RoomBounds().scene.gt_mesh())
+    t0 = time.perf_counter()
+    vis = create_visibility_volume.main(data + [
+        "--split", "test", "--mv_tuple_file_suffix", "_eight_view_deepvmvs_dense_offline.txt",
+        "--name", "chip_smoke_scannet_mesh", "--output_base_path", out_dir,
+        "--image_width", str(opts.image_width), "--image_height", str(opts.image_height),
+        "--num_workers", "4", "--single_debug_scan_id", scan, "--device", opts.device])
+    vis_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = mesh_eval.main([
+        "--pred_dir", pred_dir, "--gt_dir", gt_dir, "--visibility_dir",
+        os.path.dirname(vis[scan]), "--output_json", os.path.join(base, "mesh_metrics.json"),
+        "--device", opts.device])["per_scene"][scan]
+    summary["mesh_truth"] = {
+        "frames": len(gt), "k2_launches": gt_launches,
+        "fuse_ms_per_frame": float(np.median(fuse_ms)), "mesh": truth_mesh,
+        "visibility_cli_s": vis_s, "eval_s": time.perf_counter() - t0, "metrics": metrics}
+    log(f"{path}: the reader's GT depths ({len(gt)} frames, {gt_launches} K2 launches) vs "
+        f"the analytic room: acc {metrics['acc']:.3f} cm, compl {metrics['compl']:.3f} cm, "
+        f"precision {metrics['precision']:.4f}, recall {metrics['recall']:.4f}, F "
+        f"{metrics['fscore']:.4f}")
+    if not (gt_launches == len(gt) == len(valid) and all(np.isfinite(v) for v in
+                                                         metrics.values())
+            and metrics["acc"] < 2.0 and metrics["precision"] > 0.95):
+        raise RuntimeError(f"{path}: the reader's GT mesh failed: {summary['mesh_truth']}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"{path}: phase 20 took {summary['phase_s']:.1f} s")
+    return summary
+
+
 # -------------------------------------------------------------- kernel line
 
 
@@ -2354,6 +2785,8 @@ def main(argv):
             paths["mesh_truth"] = run_mesh_truth_path(tmp, os.path.join(
                 opts.output_base_path, opts.name, "incremental_default", "meshes", "synth0.ply"))
             paths.update(run_small_config(tmp, batch_np))
+            paths["scannet_eval"] = run_scannet_path(
+                tmp, os.path.join(tmp, "chip_smoke_train"), main_summary)
             results["paths"] = paths
             kernels = time_kernels(k1, k1_bf16, k2, main_summary["launches"],
                                    paths["offline_bf16"]["launches"]["fused_volume"])

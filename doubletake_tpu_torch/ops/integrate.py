@@ -53,19 +53,25 @@ def integrate_plain(values_xyz, weights_xyz, depth_hw, P_34, origin_3, **kw):
 def voxel_update_plain(values_xyz, weights_xyz, depth_hw, P_34, origin_3, *,
                        voxel_size: float, min_depth: float, max_depth: float,
                        truncation: float, trunc_check: float, update_rate: float,
-                       max_weight: float):
+                       max_weight: float, first_voxel=(0, 0, 0)):
     """``integrate_plain`` with the terms a colour update reuses: returns new
     (values, weights) and a dict of per-voxel ``valid``, ``in_img``, the
     sampled pixel's flat index ``flat``, the frame's weight ``new_w`` and
-    the unclamped ``total`` weight (the JAX ``_voxel_update``, tsdf.py:135-221)."""
+    the unclamped ``total`` weight (the JAX ``_voxel_update``, tsdf.py:135-221).
+
+    ``first_voxel``: the index of the block's first voxel in a larger volume
+    at ``origin_3``, so that a volume too large for this version's
+    temporaries is computed block by block with the whole volume's
+    arithmetic (origin + index x voxel size, as the kernel computes it)."""
     X, Y, Z = values_xyz.shape
     H, W = depth_hw.shape
     dev = values_xyz.device
     f32 = torch.float32
     vs = torch.full((), voxel_size, dtype=f32, device=dev)
-    cx = (origin_3[0] + torch.arange(X, dtype=f32, device=dev) * vs).view(X, 1, 1)
-    cy = (origin_3[1] + torch.arange(Y, dtype=f32, device=dev) * vs).view(1, Y, 1)
-    cz = (origin_3[2] + torch.arange(Z, dtype=f32, device=dev) * vs).view(1, 1, Z)
+    (i0, j0, k0) = first_voxel
+    cx = (origin_3[0] + torch.arange(i0, i0 + X, dtype=f32, device=dev) * vs).view(X, 1, 1)
+    cy = (origin_3[1] + torch.arange(j0, j0 + Y, dtype=f32, device=dev) * vs).view(1, Y, 1)
+    cz = (origin_3[2] + torch.arange(k0, k0 + Z, dtype=f32, device=dev) * vs).view(1, 1, Z)
     P = P_34.reshape(12)
     cam0 = P[0] * cx + P[1] * cy + P[2] * cz + P[3]
     cam1 = P[4] * cx + P[5] * cy + P[6] * cz + P[7]

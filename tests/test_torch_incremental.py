@@ -36,6 +36,7 @@ from doubletake_tpu_torch.options import Options
 from doubletake_tpu_torch.runners import common, incremental, no_hint, offline_two_pass, revisit
 from doubletake_tpu_torch.scripts import (
     create_visibility_volume,
+    evaluation,
     mesh_eval,
     render_hints,
     render_trajectory,
@@ -171,6 +172,9 @@ def test_cuda_is_the_default_device():
         render_hints.main(["--depth_cache_dir", ".", "--render_output_dir", "."])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         render_trajectory.main(["--tsdf_path", "missing.npz"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluation.main(["--dataset", "synthetic", "--feature_volume_type",
+                         "mlp_mesh_hint_feature_volume"])
 
 
 def test_port_imports_no_jax():
@@ -200,7 +204,13 @@ assert {"doubletake_tpu_torch.train", "doubletake_tpu_torch.losses",
         "doubletake_tpu_torch.scripts.render_hints",
         "doubletake_tpu_torch.scripts.render_trajectory",
         "doubletake_tpu_torch.tools.partial_fuser", "doubletake_tpu_torch.tools.viz_renderer",
-        "doubletake_tpu_torch.training.distributed"} <= set(names), names
+        "doubletake_tpu_torch.training.distributed",
+        "doubletake_tpu_torch.tools.keyframe_buffer", "doubletake_tpu_torch.tools.tuple_generation",
+        "doubletake_tpu_torch.utils.cropping", "doubletake_tpu_torch.scripts.evaluation",
+        "doubletake_tpu_torch.scripts.precompute_valid_frames",
+        "doubletake_tpu_torch.scripts.generate_test_tuples",
+        "doubletake_tpu_torch.scripts.generate_train_tuples",
+        "doubletake_tpu_torch.scripts.strip_checkpoint"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

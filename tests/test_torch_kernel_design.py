@@ -310,3 +310,34 @@ def test_block_cull_keeps_every_updated_voxel(name):
     else:
         # not vacuous: the frame updates voxels, and boxes are culled and kept
         assert n_up > 1000 and 0 < n_cull < culled.numel()
+
+
+@pytest.mark.parametrize("name", sorted(POSES))
+def test_plain_blocks_equal_whole_volume(name):
+    """``integrate_plain`` over x-slabs and a y-z block, each at its
+    ``first_voxel`` in the whole volume, is bit-equal to the whole volume's
+    update (the plain version of a volume too large for its temporaries)."""
+    cTw, max_depth, depth_mean = POSES[name]
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0] = K[1, 1] = 0.7 * DW
+    K[0, 2], K[1, 2] = DW / 2, DH / 2
+    P = t((K @ cTw)[:3])
+    rng = np.random.RandomState(4)
+    depth = t((depth_mean + rng.uniform(-0.03, 0.03, (DH, DW))).astype(np.float32))
+    origin = torch.tensor(ORIGIN, dtype=torch.float32)
+    values = t(rng.uniform(-1.0, 1.0, DIMS).astype(np.float32))
+    weights = t(rng.uniform(0.0, 0.5, DIMS).astype(np.float32))
+    kw = dict(voxel_size=VOXEL, min_depth=0.1, max_depth=max_depth, truncation=0.12,
+              trunc_check=-0.18, update_rate=2.5, max_weight=100.0)
+    whole_v, whole_w = integrate_plain(values, weights, depth, P, origin, **kw)
+    for x0 in range(0, DIMS[0], 24):
+        x1 = min(x0 + 24, DIMS[0])
+        v, w = integrate_plain(values[x0:x1], weights[x0:x1], depth, P, origin,
+                               first_voxel=(x0, 0, 0), **kw)
+        assert torch.equal(v, whole_v[x0:x1]) and torch.equal(w, whole_w[x0:x1])
+    block = (slice(8, 40), slice(5, 50), slice(17, 64))
+    v, w = integrate_plain(values[block], weights[block], depth, P, origin,
+                           first_voxel=(8, 5, 17), **kw)
+    assert torch.equal(v, whole_v[block]) and torch.equal(w, whole_w[block])
+    if name != "away":
+        assert int((whole_w != weights).sum()) > 1000
