@@ -266,6 +266,17 @@ def median_ms(fn, reps=10, warmup=2, inner=1):
     return times[len(times) // 2]
 
 
+def kernel_launches(since=None):
+    """K1's and K2's launches so far (the port's ``tracing`` counters), or
+    since ``since``, an earlier reading."""
+    from doubletake_tpu_torch.utils import tracing
+
+    c = tracing.counters()
+    now = {"fused_volume": c.get("ops.fused_volume.launches", 0),
+           "integrate": c.get("ops.integrate.launches", 0)}
+    return now if since is None else {k: now[k] - since[k] for k in now}
+
+
 def sync():
     import torch
 
@@ -657,27 +668,23 @@ def flagship_options(out_dir):
 
 
 def run_main_path(opts, path="main path", model=None):
-    """``runners.incremental.run`` over the scan with both kernels' counts
-    set to 0 just before it; each kernel must launch once a frame. The
+    """``runners.incremental.run`` over the scan with both kernels' launches
+    counted over it; each kernel must launch once a frame. The
     model is built from ``opts`` with random weights unless given."""
     import torch
 
     from doubletake_tpu_torch.datasets.registry import dataset_from_opts
-    from doubletake_tpu_torch.ops import fused_volume as fv
-    from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.runners import common, incremental
 
     if model is None:
         model = common.init_or_load_params(opts, common.build_model(opts))
     torch.cuda.reset_peak_memory_stats()   # the main path's peak, not the kernel checks'
-    fv.fused_feature_volume.launches = 0
-    ig.fused_integrate.launches = 0
+    launches0 = kernel_launches()
     t0 = time.perf_counter()
     res = incremental.run(opts, model=model)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"fused_volume": fv.fused_feature_volume.launches,
-                "integrate": ig.fused_integrate.launches}
+    launches = kernel_launches(launches0)
 
     base = os.path.join(opts.output_base_path, opts.name, "incremental_default")
     with open(os.path.join(base, "scores", "synth0_metrics.json")) as f:
@@ -897,24 +904,19 @@ def check_mesh(path, meshes_dir, scan, exported, colors=False):
 
 
 def drive(path, run, opts, model, expected):
-    """One run of a path with both kernels' counts set to 0 just before it
-    and read just after; fails unless each kernel launched ``expected``
+    """One run of a path with both kernels' launches counted over it;
+    fails unless each kernel launched ``expected``
     times. Returns the run's result and its launches, wall time and peak
     device memory."""
     import torch
 
-    from doubletake_tpu_torch.ops import fused_volume as fv
-    from doubletake_tpu_torch.ops import integrate as ig
-
     torch.cuda.reset_peak_memory_stats()
-    fv.fused_feature_volume.launches = 0
-    ig.fused_integrate.launches = 0
+    launches0 = kernel_launches()
     t0 = time.perf_counter()
     res = run(opts, model=model)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"fused_volume": fv.fused_feature_volume.launches,
-                "integrate": ig.fused_integrate.launches}
+    launches = kernel_launches(launches0)
     summary = {"wall_s": wall, "launches": launches, "expected_launches": expected,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     if launches != expected:
@@ -1309,8 +1311,6 @@ def run_train_path(out_dir, opts=None, path="train"):
 
     from doubletake_tpu_torch.data.loader import DataLoader
     from doubletake_tpu_torch.datasets.registry import dataset_from_opts
-    from doubletake_tpu_torch.ops import fused_volume as fv
-    from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.runners import common
     from doubletake_tpu_torch.training import train_loop as tl
 
@@ -1321,15 +1321,14 @@ def run_train_path(out_dir, opts=None, path="train"):
     validate = tl.validate
 
     def counted_validate(*args, **kwargs):
-        counts["in_train_steps"] = fv.fused_feature_volume.launches
-        before = fv.fused_feature_volume.launches
+        counts["in_train_steps"] = kernel_launches(launches0)["fused_volume"]
+        before = kernel_launches(launches0)["fused_volume"]
         out = validate(*args, **kwargs)
-        counts["in_validation"] = fv.fused_feature_volume.launches - before
+        counts["in_validation"] = kernel_launches(launches0)["fused_volume"] - before
         return out
 
     torch.cuda.reset_peak_memory_stats()
-    fv.fused_feature_volume.launches = 0
-    ig.fused_integrate.launches = 0
+    launches0 = kernel_launches()
     tl.validate = counted_validate
     t0 = time.perf_counter()
     try:
@@ -1338,8 +1337,7 @@ def run_train_path(out_dir, opts=None, path="train"):
         tl.validate = validate
     sync()
     wall = time.perf_counter() - t0
-    launches = {"fused_volume": fv.fused_feature_volume.launches,
-                "integrate": ig.fused_integrate.launches}
+    launches = kernel_launches(launches0)
     losses = res["losses"]
     if res["step"] != TRAIN_STEPS or not all(v == v and abs(v) != float("inf")
                                              for v in losses.values()):
@@ -1446,7 +1444,6 @@ def run_color_path(out_dir, model):
     import torch
 
     from doubletake_tpu_torch.datasets.registry import dataset_from_opts
-    from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.runners import common, no_hint
     from doubletake_tpu_torch.tools.tsdf import TSDF
 
@@ -1480,11 +1477,11 @@ def run_color_path(out_dir, model):
     gt = gt_frames(dataset_from_opts(opts, split=opts.split, limit_to_scan_id="synth0"), device)
     vol_c, cfg = common.make_fuser(opts, ds, "synth0", device)
     vol_k = TSDF(vol_c.values.clone(), vol_c.weights.clone(), vol_c.origin, vol_c.voxel_size)
-    before = ig.fused_integrate.launches
+    before = kernel_launches()["integrate"]
     color_ms = timed_fuse(vol_c, cfg, gt, color=True)
-    color_launches = ig.fused_integrate.launches - before
+    color_launches = kernel_launches()["integrate"] - before
     k2_ms = timed_fuse(vol_k, cfg, gt, color=False)
-    k2_launches = ig.fused_integrate.launches - before - color_launches
+    k2_launches = kernel_launches()["integrate"] - before - color_launches
     bad = int((vol_c.values != vol_k.values).sum()) + int((vol_c.weights != vol_k.weights).sum())
     c = vol_c.colors.float()
     summary["gt_fusion"] = {
@@ -1516,8 +1513,6 @@ def run_mesh_truth_path(out_dir, main_mesh_path):
         sample_mesh_points,
     )
     from doubletake_tpu_torch.eval.visibility import SimpleVolume, integrate_visibility
-    from doubletake_tpu_torch.ops import fused_volume as fv
-    from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.runners import common
     from doubletake_tpu_torch.scripts import create_visibility_volume, mesh_eval
     from doubletake_tpu_torch.tools.marching_cubes import load_ply, save_ply
@@ -1533,11 +1528,9 @@ def run_mesh_truth_path(out_dir, main_mesh_path):
 
     # the GT depths through K2 at the score fuser's 0.02 m / 3.5 m
     vol, cfg = common.make_fuser(opts, ds, "synth0", device)
-    fv.fused_feature_volume.launches = 0
-    ig.fused_integrate.launches = 0
+    launches0 = kernel_launches()
     fuse_ms = timed_fuse(vol, cfg, gt, color=False)
-    launches = {"fused_volume": fv.fused_feature_volume.launches,
-                "integrate": ig.fused_integrate.launches}
+    launches = kernel_launches(launches0)
     if launches != {"fused_volume": 0, "integrate": len(gt)}:
         raise RuntimeError(f"mesh truth: launches {launches}")
     vol.save(os.path.join(pred_dir, "synth0_tsdf.npz"))
@@ -1896,19 +1889,15 @@ def dp_rank(rank, world, opts):
     all-reduces of the step's flat vector."""
     import torch
 
-    from doubletake_tpu_torch.ops import fused_volume as fv
-    from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.training import distributed
     from doubletake_tpu_torch.training import train_loop as tl
 
     device = torch.device(opts.device)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
-    fv.fused_feature_volume.launches = 0
-    ig.fused_integrate.launches = 0
+    launches0 = kernel_launches()
     res = tl.fixed_batch_steps(rank, world, opts)
-    res["launches"] = {"fused_volume": fv.fused_feature_volume.launches,
-                       "integrate": ig.fused_integrate.launches}
+    res["launches"] = kernel_launches(launches0)
     res["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     res["allreduce_ms"] = None
     if torch.distributed.is_initialized():
@@ -1931,8 +1920,6 @@ def plain_collective(opts, batch, shards_n=2, steps=2):
     card), the model, and the kernels' launches."""
     import torch
 
-    from doubletake_tpu_torch.ops import fused_volume as fv
-    from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.runners import common
     from doubletake_tpu_torch.training import train_loop as tl
 
@@ -1945,8 +1932,7 @@ def plain_collective(opts, batch, shards_n=2, steps=2):
     shards = [tl.train_batch(*({k: v[rows * r: rows * (r + 1)] for k, v in part.items()}
                                for part in batch), device) for r in range(shards_n)]
     gens = [tl.rank_generator(opts, r) for r in range(shards_n)]
-    fv.fused_feature_volume.launches = 0
-    ig.fused_integrate.launches = 0
+    launches0 = kernel_launches()
     losses, first = [], {}
     for i in range(steps):
         draws = [tl.draw_step_randomness(g, rows, s["image_bkhw3"].shape[1], device)
@@ -1957,8 +1943,7 @@ def plain_collective(opts, batch, shards_n=2, steps=2):
             first = {"reduced": step.reduced.clone(), "local": step.flats[0].clone()}
     return {"losses": losses, "state": {k: v.cpu() for k, v in model.state_dict().items()},
             "model": model, **first,
-            "launches": {"fused_volume": fv.fused_feature_volume.launches,
-                         "integrate": ig.fused_integrate.launches}}
+            "launches": kernel_launches(launches0)}
 
 
 def run_data_parallel(out_dir, train_summary):
@@ -2051,8 +2036,6 @@ def run_hint_renders(out_dir, no_hint_model):
     import torch
 
     from doubletake_tpu_torch.datasets.registry import dataset_from_opts
-    from doubletake_tpu_torch.ops import fused_volume as fv
-    from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.scripts import render_hints
     from doubletake_tpu_torch.tools.partial_fuser import PartialFuser
     from doubletake_tpu_torch.tools.tsdf import TSDF, FusionConfig
@@ -2067,8 +2050,7 @@ def run_hint_renders(out_dir, no_hint_model):
     no_hint.run(opts, model=no_hint_model)
     cache_dir = os.path.join(out_dir, opts.name, "no_hint_default", "depth_cache")
     render_dir = os.path.join(out_dir, "hint_renders")
-    fv.fused_feature_volume.launches = 0
-    ig.fused_integrate.launches = 0
+    launches0 = kernel_launches()
     t_cli = time.perf_counter()
     render_hints.main(["--dataset", "synthetic", "--single_debug_scan_id", "synth0",
                        "--split", opts.split, "--image_width", str(opts.image_width),
@@ -2077,8 +2059,7 @@ def run_hint_renders(out_dir, no_hint_model):
                        "--depth_noise", "0.05"])
     sync()
     cli_s = time.perf_counter() - t_cli
-    launches = {"fused_volume": fv.fused_feature_volume.launches,
-                "integrate": ig.fused_integrate.launches}
+    launches = kernel_launches(launches0)
     cache = np.load(os.path.join(cache_dir, "synth0_depths.npz"))
     ids, depths = cache["frame_ids"], cache["depths"]
     counts = {v: len(os.listdir(os.path.join(render_dir, "synth0", v)))
@@ -2143,8 +2124,6 @@ def run_extras(out_dir, model, main_opts):
     import torch
 
     from doubletake_tpu_torch.datasets import registry
-    from doubletake_tpu_torch.ops import fused_volume as fv
-    from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.runners import common, incremental
     from doubletake_tpu_torch.scripts import render_trajectory
     from doubletake_tpu_torch.tools import tsdf as tt
@@ -2153,8 +2132,7 @@ def run_extras(out_dir, model, main_opts):
     device = torch.device(main_opts.device)
     ds = registry.dataset_from_opts(main_opts, split=main_opts.split)
     frames = gt_frames(ds, device)
-    fv.fused_feature_volume.launches = 0
-    ig.fused_integrate.launches = 0
+    launches0 = kernel_launches()
     vols = {}
     with torch.no_grad():
         for name in ("batch", "loop", "cull"):
@@ -2166,8 +2144,7 @@ def run_extras(out_dir, model, main_opts):
             tt.integrate_depth(vols["loop"], depth, cTw, K, cfg)
             tt.integrate_depth(vols["cull"], depth, cTw, K, cfg, cull=True,
                                cull_max_fraction=0.5)
-    launches = {"fused_volume": fv.fused_feature_volume.launches,
-                "integrate": ig.fused_integrate.launches}
+    launches = kernel_launches(launches0)
     equal = {name: bool(torch.equal(vols[name].values, vols["loop"].values)
                         and torch.equal(vols[name].weights, vols["loop"].weights))
              for name in ("batch", "cull")}
@@ -2342,7 +2319,6 @@ def cube_parity(opts, ds, scan, frames, dims):
     run's ``dims``), held bit-equal to the plain version slab by slab."""
     import torch
 
-    from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.runners import common
     from doubletake_tpu_torch.tools.tsdf import integrate_depth
 
@@ -2351,7 +2327,7 @@ def cube_parity(opts, ds, scan, frames, dims):
     if list(cube.values.shape) != list(dims):
         raise RuntimeError(f"the reader's volume {list(cube.values.shape)} is not the "
                            f"evaluation's {list(dims)}")
-    before = ig.fused_integrate.launches
+    before = kernel_launches()["integrate"]
     with torch.no_grad():
         for depth, cTw, K, _ in frames:
             integrate_depth(cube, depth, cTw, K, cfg)
@@ -2359,7 +2335,7 @@ def cube_parity(opts, ds, scan, frames, dims):
         planes = [(depth[..., 0].contiguous(), torch.matmul(K, cTw)[:3].contiguous())
                   for depth, cTw, K, _ in frames]
         summary = slab_parity("the reader's cube", cube, planes, fuser_kwargs(cube, cfg))
-    summary["k2_launches"] = ig.fused_integrate.launches - before
+    summary["k2_launches"] = kernel_launches()["integrate"] - before
     if summary["k2_launches"] != len(frames):
         raise RuntimeError(f"the cube took {summary['k2_launches']} K2 launches for "
                            f"{len(frames)} frames")
@@ -2392,8 +2368,6 @@ def run_scannet_path(out_dir, train_dir, main_summary):
     import torch
 
     from doubletake_tpu_torch.datasets.registry import dataset_from_opts
-    from doubletake_tpu_torch.ops import fused_volume as fv
-    from doubletake_tpu_torch.ops import integrate as ig
     from doubletake_tpu_torch.options import OptionsHandler
     from doubletake_tpu_torch.runners import common
     from doubletake_tpu_torch.scripts import (
@@ -2502,14 +2476,12 @@ def run_scannet_path(out_dir, train_dir, main_summary):
     log(f"{path}: {len(kept)} of {len(default)} default lines have 8 frames; "
         f"{len(default) - len(kept)} dropped")
     torch.cuda.reset_peak_memory_stats()
-    fv.fused_feature_volume.launches = 0
-    ig.fused_integrate.launches = 0
+    launches0 = kernel_launches()
     t0 = time.perf_counter()
     res = evaluation.main(argv)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"fused_volume": fv.fused_feature_volume.launches,
-                "integrate": ig.fused_integrate.launches}
+    launches = kernel_launches(launches0)
     expected = {"fused_volume": len(kept), "integrate": len(kept)}
     if launches != expected or res["frames"] != len(kept):
         raise RuntimeError(f"{path}: launches {launches}, frames {res['frames']}, "
@@ -2573,9 +2545,9 @@ def run_scannet_path(out_dir, train_dir, main_summary):
           for fid in ids]
     summary["cube_parity"] = cube_parity(opts, ds, scan, gt[:CUBE_FRAMES], dims)
     vol, cfg = common.make_fuser(opts, RoomBounds(), scan, opts.device)
-    before = ig.fused_integrate.launches
+    before = kernel_launches()["integrate"]
     fuse_ms = timed_fuse(vol, cfg, gt, color=False)
-    gt_launches = ig.fused_integrate.launches - before
+    gt_launches = kernel_launches()["integrate"] - before
     base = os.path.join(out_dir, "chip_smoke_scannet_mesh")
     pred_dir, gt_dir = os.path.join(base, "pred"), os.path.join(base, "gt")
     os.makedirs(pred_dir, exist_ok=True)

@@ -24,6 +24,8 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
+from doubletake_tpu_torch.utils.tracing import span
+
 _SRC_RENAME = re.compile(r"_b(hw3|hw1|44|hw)$")
 
 
@@ -96,6 +98,23 @@ class DataLoader:
         for s in range(0, end, self.batch_size):
             yield idx[s: s + self.batch_size][rank * block: (rank + 1) * block]
 
+    @staticmethod
+    def _wait(q: queue.Queue, thread: threading.Thread):
+        """The consumer's wait for the next item, retries included."""
+        while True:
+            try:
+                return q.get(timeout=1.0)
+            except queue.Empty:
+                if thread.is_alive():
+                    continue
+                try:  # race: producer may put its last item, then exit
+                    return q.get_nowait()
+                except queue.Empty:
+                    raise RuntimeError(
+                        "DataLoader producer died (exception in a "
+                        "dataset __getitem__ worker?)"
+                    ) from None
+
     def __iter__(self) -> Iterator:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -132,18 +151,8 @@ class DataLoader:
         thread.start()
         try:
             while True:
-                try:
-                    item = q.get(timeout=1.0)
-                except queue.Empty:
-                    if thread.is_alive():
-                        continue
-                    try:  # race: producer may put its last item, then exit
-                        item = q.get_nowait()
-                    except queue.Empty:
-                        raise RuntimeError(
-                            "DataLoader producer died (exception in a "
-                            "dataset __getitem__ worker?)"
-                        ) from None
+                with span("data.loader_wait"):
+                    item = self._wait(q, thread)
                 if item is None:
                     return
                 yield item

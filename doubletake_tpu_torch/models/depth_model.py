@@ -28,6 +28,7 @@ import torch.nn as nn
 from doubletake_tpu_torch.models.backbones import get_image_encoder, get_matching_encoder
 from doubletake_tpu_torch.models.cost_volume import get_volume_class
 from doubletake_tpu_torch.models.decoders import CVEncoder, DepthDecoderPP, SkipDecoderRegression
+from doubletake_tpu_torch.utils.tracing import span
 
 
 class DepthModel(nn.Module):
@@ -118,55 +119,63 @@ class DepthModel(nn.Module):
             cur_image = flipped(cur_image, 2)
         if src_image is not None:
             src_image = flipped(src_image, 3)
-        if cur_feats is not None:
-            assert not flip, "cur_feats is an inference input; flipped passes encode images"
-            cur_feats = tuple(f.to(dtype) for f in cur_feats)
-        else:
-            cur_feats = self.encoder(cur_image)
-        b, k = src_data["world_T_cam_bk44"].shape[:2]
-        if src_matching_feats is None and cur_matching_feats is None:
-            all_images = torch.cat([cur_image[:, None], src_image], 1)
-            all_feats = self.matching_model(all_images.reshape((b * (k + 1),) + all_images.shape[2:]))
-            all_feats = all_feats.reshape((b, k + 1) + all_feats.shape[1:])
-            matching_cur_feats, matching_src_feats = all_feats[:, 0], all_feats[:, 1:]
-        else:
-            assert not flip, ("src/cur matching feats are inference feature-cache inputs; "
-                              "flipped passes encode images")
-            matching_cur_feats = (cur_matching_feats.to(dtype) if cur_matching_feats is not None
-                                  else self.matching_model(cur_image))
-            if src_matching_feats is not None:
-                matching_src_feats = src_matching_feats.to(dtype)
+        with span("model.image_encoder"):
+            if cur_feats is not None:
+                assert not flip, "cur_feats is an inference input; flipped passes encode images"
+                cur_feats = tuple(f.to(dtype) for f in cur_feats)
             else:
-                f = self.matching_model(src_image.reshape((b * k,) + src_image.shape[2:]))
-                matching_src_feats = f.reshape((b, k) + f.shape[1:])
-        # the plane sweep needs the views as the cameras saw them
-        matching_cur_feats = flipped(matching_cur_feats, 2)
-        matching_src_feats = flipped(matching_src_feats, 3)
+                cur_feats = self.encoder(cur_image)
+        b, k = src_data["world_T_cam_bk44"].shape[:2]
+        with span("model.matching_encoder"):
+            if src_matching_feats is None and cur_matching_feats is None:
+                all_images = torch.cat([cur_image[:, None], src_image], 1)
+                all_feats = self.matching_model(
+                    all_images.reshape((b * (k + 1),) + all_images.shape[2:]))
+                all_feats = all_feats.reshape((b, k + 1) + all_feats.shape[1:])
+                matching_cur_feats, matching_src_feats = all_feats[:, 0], all_feats[:, 1:]
+            else:
+                assert not flip, ("src/cur matching feats are inference feature-cache inputs; "
+                                  "flipped passes encode images")
+                matching_cur_feats = (cur_matching_feats.to(dtype)
+                                      if cur_matching_feats is not None
+                                      else self.matching_model(cur_image))
+                if src_matching_feats is not None:
+                    matching_src_feats = src_matching_feats.to(dtype)
+                else:
+                    f = self.matching_model(src_image.reshape((b * k,) + src_image.shape[2:]))
+                    matching_src_feats = f.reshape((b, k) + f.shape[1:])
+            # the plane sweep needs the views as the cameras saw them
+            matching_cur_feats = flipped(matching_cur_feats, 2)
+            matching_src_feats = flipped(matching_src_feats, 3)
 
-        cost_volume_bhwd, lowest_cost_bhw, _, overall_mask_bhw = self.cost_volume(
-            matching_cur_feats, matching_src_feats, src_cam_T_cur_cam, cur_cam_T_src_cam,
-            src_K, cur_invK, self.min_matching_depth, self.max_matching_depth,
-            hint=hint, return_mask=return_mask,
-        )
-        cost_volume_bhwd = flipped(cost_volume_bhwd, 2)
+        with span("model.cost_volume"):
+            cost_volume_bhwd, lowest_cost_bhw, _, overall_mask_bhw = self.cost_volume(
+                matching_cur_feats, matching_src_feats, src_cam_T_cur_cam, cur_cam_T_src_cam,
+                src_K, cur_invK, self.min_matching_depth, self.max_matching_depth,
+                hint=hint, return_mask=return_mask,
+            )
+            cost_volume_bhwd = flipped(cost_volume_bhwd, 2)
         if stop_after == "cost_volume":
             return {"cost_volume_bhwd": cost_volume_bhwd,
                     "matching_feats_bhwc": matching_cur_feats}
 
         # the decoder stack runs NCHW: the volume's (B, H, W, D) view is the
         # kernel's (B, D, H, W) buffer, so this permute is free
-        cv_feats = self.cost_volume_net.forward_nchw(
-            cost_volume_bhwd.permute(0, 3, 1, 2),
-            [f.permute(0, 3, 1, 2) for f in cur_feats[self.matching_scale:]])
+        with span("model.cv_encoder"):
+            cv_feats = self.cost_volume_net.forward_nchw(
+                cost_volume_bhwd.permute(0, 3, 1, 2),
+                [f.permute(0, 3, 1, 2) for f in cur_feats[self.matching_scale:]])
         if stop_after == "cv_encoder":
             return {"cv_feats": [f.permute(0, 2, 3, 1) for f in cv_feats],
                     "matching_feats_bhwc": matching_cur_feats}
-        decoder_inputs = [f.permute(0, 3, 1, 2) for f in cur_feats[:self.matching_scale]] + cv_feats
         outputs = {}
-        for key, log_depth in self.depth_decoder.forward_nchw(decoder_inputs).items():
-            log_depth = flipped(log_depth.permute(0, 2, 3, 1).float(), 2)
-            outputs[key] = log_depth
-            outputs[key.replace("log_", "")] = torch.exp(log_depth)
+        with span("model.decoder"):
+            decoder_inputs = ([f.permute(0, 3, 1, 2) for f in cur_feats[:self.matching_scale]]
+                              + cv_feats)
+            for key, log_depth in self.depth_decoder.forward_nchw(decoder_inputs).items():
+                log_depth = flipped(log_depth.permute(0, 2, 3, 1).float(), 2)
+                outputs[key] = log_depth
+                outputs[key.replace("log_", "")] = torch.exp(log_depth)
         outputs["lowest_cost_bhw"] = lowest_cost_bhw
         outputs["overall_mask_bhw"] = overall_mask_bhw
         # features of a mirrored image never enter the runners' feature cache

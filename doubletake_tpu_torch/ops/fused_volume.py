@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from doubletake_tpu_torch.ops.build import load_kernel
 from doubletake_tpu_torch.ops.grid_sample import grid_sample_2d
+from doubletake_tpu_torch.utils import tracing
 from doubletake_tpu_torch.utils.geometry import (
     normalize_vectors,
     pixel_grid_homogeneous,
@@ -379,6 +380,7 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)
 
 
+@tracing.spanned("ops.fused_volume")
 def fused_feature_volume(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, centers_bk3,
                          pose_meta_b3k, planes_d, mlp, hint_mlp=None, hint_bhw3=None,
                          plane_chunk: int = 16):
@@ -462,8 +464,5 @@ def fused_feature_volume(cur_feats_bhwc, src_feats_bkhwc, P_bk34, rays_b3n, cent
              int(feat_dtype == torch.bfloat16), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused volume kernel launch failed: cudaError {err}")
-    fused_feature_volume.launches += 1
+    tracing.count("ops.fused_volume.launches")
     return out
-
-
-fused_feature_volume.launches = 0

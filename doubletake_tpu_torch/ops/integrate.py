@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from doubletake_tpu_torch.ops.build import load_kernel
+from doubletake_tpu_torch.utils import tracing
 
 BOX = (8, 1, 32)     # voxels of one warp's box, (x, y, z) (csrc/integrate.cu)
 CULL_REL = 1e-5      # corner margin, relative to each projected sum's magnitude
@@ -145,6 +146,7 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+@tracing.spanned("ops.integrate")
 def fused_integrate(values_xyz, weights_xyz, depth_hw, P_34, origin_3, *,
                     voxel_size: float, min_depth: float, max_depth: float,
                     truncation: float, trunc_check: float, update_rate: float,
@@ -187,8 +189,5 @@ def fused_integrate(values_xyz, weights_xyz, depth_hw, P_34, origin_3, *,
              truncation, trunc_check, update_rate, max_weight, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"integrate kernel launch failed: cudaError {err}")
-    fused_integrate.launches += 1
+    tracing.count("ops.integrate.launches")
     return values_xyz, weights_xyz
-
-
-fused_integrate.launches = 0

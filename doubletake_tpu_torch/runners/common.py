@@ -27,6 +27,8 @@ from doubletake_tpu_torch.tools.marching_cubes import export_mesh
 from doubletake_tpu_torch.tools.tsdf import TSDF, FusionConfig, auto_raycast_samples, raycast
 from doubletake_tpu_torch.utils.io import IMAGENET_MEAN, IMAGENET_STD
 from doubletake_tpu_torch.utils.metrics import compute_depth_metrics_batched
+# the runners' and the benchmark's ``common.StageClock``
+from doubletake_tpu_torch.utils.tracing import StageClock, spanned  # noqa: F401
 
 EVAL_MIN_DEPTH = 0.5  # valid GT depth threshold (test_no_hint.py:184)
 HINT_WEIGHT_THRESHOLD = 0.025  # test_incremental.py:244
@@ -113,35 +115,6 @@ def maybe_cast(opts: Options, model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
-class StageClock:
-    """Stage boundaries of one step: CUDA events on a GPU (read after the
-    step's synchronisation, so timing adds no sync), host clock on the CPU.
-    ``synced`` (``split_timing``): each mark first waits for the device and
-    reads the host clock."""
-
-    def __init__(self, device, synced: bool = False):
-        self.cuda = torch.device(device).type == "cuda"
-        self.events = self.cuda and not synced
-        self.marks = []
-
-    def mark(self, name: str):
-        if self.events:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-            return
-        if self.cuda:
-            torch.cuda.synchronize()
-        self.marks.append((name, time.perf_counter()))
-
-    def elapsed_ms(self):
-        """{stage: ms} between consecutive marks; call after a synchronize."""
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) if self.events else (b - a) * 1e3
-        return out
-
-
 def empty_hint(b: int, h: int, w: int, device):
     """An all-invalid hint, as the JAX runners feed before a volume exists."""
     zero = torch.zeros((b, h, w, 1), dtype=torch.float32, device=device)
@@ -201,6 +174,7 @@ def finalize_tsdf(opts: Options, tsdf: TSDF) -> TSDF:
     return tsdf
 
 
+@spanned("runner.device_batch")
 def device_batch(cur_np: Dict, src_np: Dict, device):
     cur = {k: torch.as_tensor(cur_np[k]).to(device) for k in CUR_KEYS if k in cur_np}
     src = {k: torch.as_tensor(src_np[k]).to(device) for k in SRC_KEYS if k in src_np}

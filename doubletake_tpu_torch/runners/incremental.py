@@ -45,6 +45,7 @@ from doubletake_tpu_torch.runners import common
 from doubletake_tpu_torch.runners.no_hint import unique_scans
 from doubletake_tpu_torch.tools.tsdf import integrate_depth
 from doubletake_tpu_torch.utils.metrics import ResultsAverager
+from doubletake_tpu_torch.utils.tracing import spanned
 from doubletake_tpu_torch.utils.visualization import quick_viz_export
 
 FEAT_CACHE_MAX = 64            # keyframe tuples reach back a few dozen frames
@@ -61,6 +62,7 @@ def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opt
     hint_step, forward_step, fuse_step = make_split_steps(
         model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opts)
 
+    @spanned("runner.step")
     def step(tsdf, cur, src, src_feats=None, clock=None):
         if clock is not None:
             clock.mark("start")

@@ -30,6 +30,7 @@ from doubletake_tpu_torch.runners import common
 from doubletake_tpu_torch.runners.no_hint import unique_scans
 from doubletake_tpu_torch.tools.tsdf import integrate_depth, prepare_static
 from doubletake_tpu_torch.utils.metrics import ResultsAverager
+from doubletake_tpu_torch.utils.tracing import span, spanned
 
 HINT_MAX_DEPTH = 3.0  # the hint volume's fusion range (test_offline_two_pass.py:47-69)
 
@@ -42,12 +43,14 @@ def compute_hint_volume(opts, model, ds, scan_id, device):
     loader = DataLoader(ds, batch_size=opts.batch_size, shuffle=False,
                         num_workers=opts.num_workers)
     for cur_np, src_np in loader:
-        cur, src = common.device_batch(cur_np, src_np, device)
-        b, h, w = cur["image_bhw3"].shape[:3]
-        out = model(cur, src, hint=common.empty_hint(b, h, w, device), return_mask=True)
-        depth = out["depth_pred_s0_bhw1"]
-        for i in range(b):
-            integrate_depth(tsdf, depth[i], cur["cam_T_world_b44"][i], cur["K_s0_b44"][i], cfg)
+        with span("runner.pass1_batch"):
+            cur, src = common.device_batch(cur_np, src_np, device)
+            b, h, w = cur["image_bhw3"].shape[:3]
+            out = model(cur, src, hint=common.empty_hint(b, h, w, device), return_mask=True)
+            depth = out["depth_pred_s0_bhw1"]
+            for i in range(b):
+                integrate_depth(tsdf, depth[i], cur["cam_T_world_b44"][i], cur["K_s0_b44"][i],
+                                cfg)
     return tsdf
 
 
@@ -58,6 +61,7 @@ def make_pass2_step(model, hint_h, hint_w, raycast_samples, hint_max_depth):
     into the volume's world frame; the model still sees the batch's own
     poses) and runs the model with those hints. No fusion inside."""
 
+    @spanned("runner.step")
     @torch.no_grad()
     def step(static_vol, cur, src):
         hint = common.render_hint(static_vol, cur, hint_h, hint_w, raycast_samples,

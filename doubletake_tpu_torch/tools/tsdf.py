@@ -52,6 +52,7 @@ import torch
 from doubletake_tpu_torch.ops.grid_sample import grid_sample_3d
 from doubletake_tpu_torch.ops.integrate import fused_integrate, voxel_update_plain
 from doubletake_tpu_torch.utils.geometry import linspace01
+from doubletake_tpu_torch.utils.tracing import spanned
 
 VOX_MOD = 8  # volume dims rounded up to multiples of 8 (tsdf.py:59)
 
@@ -143,6 +144,7 @@ class FusionConfig:
     extended_neg_truncation: bool = False
 
 
+@spanned("tsdf.integrate")
 def integrate_depth(tsdf: TSDF, depth_hw1, cam_T_world_44, K_44, config: FusionConfig,
                     depth_mask_hw1=None, image_hw3=None, cull: Optional[bool] = None,
                     cull_max_fraction: float = 0.5) -> TSDF:
@@ -450,6 +452,7 @@ def _first_crossing(vals, obs, extra=None):
     return cross.to(torch.uint8).argmax(0), cross.any(0)
 
 
+@spanned("tsdf.raycast")
 def raycast(vol, world_T_cam, invK, height: int, width: int,
             min_depth: float = 0.1, max_depth: float = 5.0, num_samples: int = 256,
             weight_epsilon: float = 1e-4, use_mip: bool = False):
