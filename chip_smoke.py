@@ -934,7 +934,7 @@ def plain_copy(model):
 
 
 def first_batch(opts, scan_id, batch_size):
-    """The first batch of a scan, as numpy (cur, src)."""
+    """The first batch of a scan, as the loader gives it (cur, src)."""
     from doubletake_tpu_torch.data.loader import DataLoader
     from doubletake_tpu_torch.datasets.registry import dataset_from_opts
 
@@ -1929,8 +1929,9 @@ def plain_collective(opts, batch, shards_n=2, steps=2):
     step = tl.make_sharded_train_step(tl.train_model_for(opts, model), optimizer, schedule,
                                       use_hint_model=True, precision=opts.precision)
     rows = opts.batch_size // shards_n
-    shards = [tl.train_batch(*({k: v[rows * r: rows * (r + 1)] for k, v in part.items()}
-                               for part in batch), device) for r in range(shards_n)]
+    whole = tl.train_batch(*batch, device)
+    shards = [tuple({k: v[rows * r: rows * (r + 1)] for k, v in part.items()} for part in whole)
+              for r in range(shards_n)]
     gens = [tl.rank_generator(opts, r) for r in range(shards_n)]
     launches0 = kernel_launches()
     losses, first = [], {}
@@ -2012,7 +2013,7 @@ def run_data_parallel(out_dir, train_summary):
 
 
 def first_train_batch(opts):
-    """The first global batch of ``opts``' training loader, as numpy."""
+    """The first global batch of ``opts``' training loader, as the loader gives it."""
     from doubletake_tpu_torch.data.loader import DataLoader
     from doubletake_tpu_torch.datasets.registry import dataset_from_opts
 

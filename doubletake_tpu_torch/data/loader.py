@@ -1,10 +1,21 @@
 """Threaded prefetching batch loader (host side).
 
 Replaces the reference's torch DataLoader worker-process model
-(train.py:79-183): a thread pool maps dataset.__getitem__, batches are
-assembled as numpy NHWC dicts and renamed for the model's batched layout
-(src keys get _bk* suffixes), with a bounded prefetch queue overlapping
-host IO with device compute.
+(train.py:79-183): a thread pool assembles each batch as numpy NHWC dicts
+renamed for the model's batched layout (src keys get _bk* suffixes), with
+a bounded prefetch queue overlapping host IO with device compute.
+
+A batch carries its images staged: the tuples' frames overlap (a frame
+sits in up to 8 consecutive tuples), so each distinct frame of the batch
+is loaded once, raw (float32 in [0, 1], not normalised), into its row of
+one ``frames_fhw3`` tensor, page-locked where CUDA is available, and
+``frame_index_b`` (cur) / ``frame_index_bk`` (src) say which row each
+tuple's reference and sources are. ``staged_images`` (through
+``runners.common.device_batch``) copies the rows once, normalises them on
+the device and gathers the images. Every other key is stacked as
+``collate`` stacks it. The counters ``data.frames_staged`` and
+``data.frames_referenced`` (``utils.tracing``) count the rows staged and
+the images the tuples reference.
 
 ``shard=(rank, world)``: the data-parallel trainer's loader for one rank.
 Every rank runs the same seeded order and renders only its block of rows,
@@ -16,6 +27,7 @@ rows of the one-process loader.
 
 from __future__ import annotations
 
+import functools
 import queue
 import re
 import threading
@@ -23,8 +35,10 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Tuple
 
 import numpy as np
+import torch
 
-from doubletake_tpu_torch.utils.tracing import span
+from doubletake_tpu_torch.utils.io import IMAGENET_MEAN, IMAGENET_STD
+from doubletake_tpu_torch.utils.tracing import count, span
 
 _SRC_RENAME = re.compile(r"_b(hw3|hw1|44|hw)$")
 
@@ -50,6 +64,68 @@ def collate(samples):
         else:
             src[_src_key(k)] = np.stack([s[k] for s in src_list], 0)
     return cur, src
+
+
+def stage(dataset, pool, batch_idx):
+    """The staged batch of tuples ``batch_idx`` of ``dataset`` (module doc):
+    the tuples' non-image arrays on ``pool``'s threads, then each distinct
+    frame's raw image, in order of first use, into its row."""
+    tuples = list(pool.map(dataset.tuple_data, batch_idx))
+    keys = list(dict.fromkeys(key for _, _, frame_keys in tuples for key in frame_keys))
+    row = {key: i for i, key in enumerate(keys)}
+    index = np.array([[row[key] for key in frame_keys] for _, _, frame_keys in tuples])
+    frames = torch.empty((len(keys), dataset.image_height, dataset.image_width, 3),
+                         dtype=torch.float32, pin_memory=torch.cuda.is_available())
+    rows = frames.numpy()
+
+    def load(i):
+        rows[i] = dataset.frame_image(keys[i])
+
+    list(pool.map(load, range(len(keys))))
+    cur, src = collate([(c, s) for c, s, _ in tuples])
+    cur["frames_fhw3"], cur["frame_index_b"] = frames, index[:, 0]
+    src["frame_index_bk"] = index[:, 1:]
+    count("data.frames_staged", len(keys))
+    count("data.frames_referenced", index.size)
+    return cur, src
+
+
+@functools.lru_cache(maxsize=None)
+def imagenet_stats(pinned: bool) -> torch.Tensor:
+    """The ImageNet mean and std, (2, 3) float32 on the host, page-locked
+    where ``pinned``: kept, so that no batch pins them again, and copied to
+    the device by each batch (kept there, they would add a block to the
+    device's peak memory)."""
+    stats = torch.from_numpy(np.stack([IMAGENET_MEAN, IMAGENET_STD]))
+    return stats.pin_memory() if pinned else stats
+
+
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """``array`` on ``device`` without blocking the host: a host array
+    bound for CUDA goes through page-locked memory (a pageable copy would
+    synchronise)."""
+    t = torch.as_tensor(array)
+    if t.device.type == "cpu" and device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def staged_images(frames_fhw3: torch.Tensor, index_b, index_bk, device: torch.device):
+    """(image_bhw3, image_bkhw3) on ``device`` from a staged batch: the raw
+    frames copied once, normalised there as ``utils.io.imagenet_normalize``
+    normalises (bit for bit: the mean and the std are float32 tensors; a
+    division by a Python scalar would become a product with its
+    reciprocal), and gathered by the index arrays; where the indices are
+    0..F-1 in the row order of one tuple, views of the frames."""
+    frames = frames_fhw3.to(device, non_blocking=True, copy=True)
+    mean, std = imagenet_stats(device.type == "cuda").to(device, non_blocking=True)
+    frames.sub_(mean).div_(std)
+    b, k = index_bk.shape
+    if b == 1 and np.array_equal(np.append(index_b, index_bk), np.arange(len(frames))):
+        return frames[:1], frames[1:][None]
+    image = frames.index_select(0, to_device(index_b, device))
+    images = frames.index_select(0, to_device(index_bk.reshape(-1), device))
+    return image, images.view(b, k, *frames.shape[1:])
 
 
 class DataLoader:
@@ -139,8 +215,7 @@ class DataLoader:
                     for batch_idx in self._index_batches(epoch):
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self.dataset.__getitem__, batch_idx))
-                        if not put(collate(samples)):
+                        if not put(stage(self.dataset, pool, batch_idx)):
                             return
                     if not self.infinite:
                         put(None)

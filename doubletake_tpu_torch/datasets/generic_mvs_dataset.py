@@ -161,9 +161,24 @@ class GenericMVSDataset:
             out[f"invK_s{i}_b44"] = np.linalg.inv(Ks).astype(np.float32)
         return out
 
+    def frame_image(self, key) -> np.ndarray:
+        """The raw image of the frame ``key`` = (scan_id, frame_id, flip):
+        (H, W, 3) float32 RGB in [0, 1] from ``load_color``, mirrored
+        left-right where ``flip`` says so (a view where it is)."""
+        scan_id, frame_id, flip = key
+        image = self.load_color(scan_id, frame_id)
+        return image[:, ::-1] if flip else image
+
     def get_frame(self, scan_id, frame_id, load_depth=True, flip=False,
                   load_depth_hint=False):
         """One frame's data dict (unbatched arrays, batched-layout names)."""
+        out = {"image_bhw3": imagenet_normalize(self.frame_image((scan_id, frame_id, flip)))}
+        out.update(self.frame_data(scan_id, frame_id, load_depth, flip, load_depth_hint))
+        return out
+
+    def frame_data(self, scan_id, frame_id, load_depth=True, flip=False,
+                   load_depth_hint=False):
+        """``get_frame`` without its image."""
         out = {}
         world_T_cam, cam_T_world = self.load_pose(scan_id, frame_id)
 
@@ -173,10 +188,6 @@ class GenericMVSDataset:
             world_T_cam = world_T_cam @ T
             cam_T_world = np.linalg.inv(world_T_cam)
 
-        image = self.load_color(scan_id, frame_id)
-        if flip:
-            image = image[:, ::-1].copy()
-        out["image_bhw3"] = imagenet_normalize(image)
         out["world_T_cam_b44"] = world_T_cam.astype(np.float32)
         out["cam_T_world_b44"] = cam_T_world.astype(np.float32)
         out.update(self.load_intrinsics(scan_id, frame_id, flip=flip))
@@ -229,7 +240,12 @@ class GenericMVSDataset:
                 stacked[name] = np.stack([d[name] for d in src_data_list], axis=0)
         return stacked
 
-    def __getitem__(self, idx):
+    def tuple_data(self, idx):
+        """Tuple ``idx`` without its images: (cur, src, keys). ``cur`` and
+        ``src`` are ``__getitem__``'s dicts less ``image_bhw3``; ``keys`` are
+        the frames' (scan_id, frame_id, flip) in ``__getitem__``'s order, the
+        reference first, then the sources in DVMVS pose-penalty order.
+        ``frame_image`` gives each key's raw image."""
         flip = (
             not self.disable_flip
             and self.split == "train"
@@ -245,7 +261,7 @@ class GenericMVSDataset:
             frame_ids = frame_ids[: self.num_images_in_tuple]
 
         frames = [
-            self.get_frame(
+            self.frame_data(
                 scan_id,
                 frame_id,
                 load_depth=True,
@@ -255,6 +271,7 @@ class GenericMVSDataset:
             for i, frame_id in enumerate(frame_ids)
         ]
         cur_data, *src_list = frames
+        order = range(len(src_list))
 
         if not self.shuffle_tuple:
             # order source frames by DVMVS pose penalty w.r.t. the reference
@@ -267,6 +284,11 @@ class GenericMVSDataset:
                 t_m = np.linalg.norm(rel[:3, 3])
                 penalties.append(np.sqrt(r_m**2 + t_m**2))
             order = np.argsort(penalties)
-            src_list = [src_list[i] for i in order]
+        keys = [(scan_id, frame_ids[0], flip)] + [(scan_id, frame_ids[1 + i], flip) for i in order]
+        return cur_data, self.stack_src_data([src_list[i] for i in order]), keys
 
-        return cur_data, self.stack_src_data(src_list)
+    def __getitem__(self, idx):
+        cur_data, src_data, keys = self.tuple_data(idx)
+        images = [imagenet_normalize(self.frame_image(key)) for key in keys]
+        return ({"image_bhw3": images[0], **cur_data},
+                {"image_bhw3": np.stack(images[1:], axis=0), **src_data})

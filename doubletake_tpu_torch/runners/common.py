@@ -19,6 +19,7 @@ import torch
 
 from doubletake_tpu_torch.checkpoints.convert import lazy_load_state_dict, load_weights
 from doubletake_tpu_torch.checkpoints.io import cast_floating
+from doubletake_tpu_torch.data.loader import staged_images, to_device
 from doubletake_tpu_torch.models.depth_model import get_model_class
 from doubletake_tpu_torch.models.layers import init_parameters
 from doubletake_tpu_torch.ops.resize import interpolate_bilinear, interpolate_nearest
@@ -175,9 +176,25 @@ def finalize_tsdf(opts: Options, tsdf: TSDF) -> TSDF:
 
 
 @spanned("runner.device_batch")
-def device_batch(cur_np: Dict, src_np: Dict, device):
-    cur = {k: torch.as_tensor(cur_np[k]).to(device) for k in CUR_KEYS if k in cur_np}
-    src = {k: torch.as_tensor(src_np[k]).to(device) for k in SRC_KEYS if k in src_np}
+def device_batch(cur_np: Dict, src_np: Dict, device, cur_keys=CUR_KEYS, src_keys=SRC_KEYS):
+    """The step's (cur, src) tensors on ``device`` from a loader batch: the
+    keys ``cur_keys`` / ``src_keys`` that the batch has. A batch of
+    ``data.loader.collate`` crosses key by key. A staged batch (the
+    loader's, ``data/loader.py``) crosses its frames once and its other
+    keys from page-locked memory, all without blocking the host; the
+    device normalises the frames and gathers ``image_bhw3`` /
+    ``image_bkhw3`` (``data.loader.staged_images``)."""
+    if "frames_fhw3" not in cur_np:
+        cur = {k: torch.as_tensor(cur_np[k]).to(device) for k in cur_keys if k in cur_np}
+        src = {k: torch.as_tensor(src_np[k]).to(device) for k in src_keys if k in src_np}
+        return cur, src
+    device = torch.device(device)
+    image, images = staged_images(cur_np["frames_fhw3"], cur_np["frame_index_b"],
+                                  src_np["frame_index_bk"], device)
+    cur_np = dict(cur_np, image_bhw3=image)
+    src_np = dict(src_np, image_bkhw3=images)
+    cur = {k: to_device(cur_np[k], device) for k in cur_keys if k in cur_np}
+    src = {k: to_device(src_np[k], device) for k in src_keys if k in src_np}
     return cur, src
 
 

@@ -178,7 +178,7 @@ def run(opts: Options, model=None):
             if opts.dump_depth_visualization:
                 quick_viz_export(
                     os.path.join(base, "viz"), f"{scan_id.replace('/', '_')}_{frame_idx:06d}",
-                    image_bhw3=cur_np["image_bhw3"][0],
+                    image_bhw3=cur["image_bhw3"][0].cpu().numpy(),
                     depth_pred=out["depth_pred_s0_bhw1"][0].float().cpu().numpy(),
                     depth_gt=cur_np["depth_bhw1"][0],
                     hint_depth=hint["depth_hint_bhw1"][0].cpu().numpy(),

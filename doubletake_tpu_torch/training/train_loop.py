@@ -75,11 +75,10 @@ HINT_KEYS = ("depth_hint_bhw1", "hint_mask_bhw1", "sampled_weights_bhw1")
 
 
 def train_batch(cur_np, src_np, device):
-    """The step's (cur, src) tensors on ``device`` from a loader batch."""
-    cur = {k: torch.as_tensor(cur_np[k]).to(device)
-           for k in TRAIN_CUR_KEYS + HINT_KEYS if k in cur_np}
-    src = {k: torch.as_tensor(src_np[k]).to(device) for k in TRAIN_SRC_KEYS if k in src_np}
-    return cur, src
+    """The step's (cur, src) tensors on ``device`` from a loader batch
+    (``common.device_batch`` with the train step's keys)."""
+    return common.device_batch(cur_np, src_np, device, TRAIN_CUR_KEYS + HINT_KEYS,
+                               TRAIN_SRC_KEYS)
 
 
 def lr_schedule(opts: Options):

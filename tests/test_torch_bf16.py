@@ -29,7 +29,7 @@ from doubletake_tpu.runners import common as jcommon
 from doubletake_tpu.training import train_loop as jtrain
 
 from doubletake_tpu_torch.checkpoints.convert import variables_to_state_dict
-from doubletake_tpu_torch.data.loader import DataLoader
+from doubletake_tpu_torch.data.loader import collate
 from doubletake_tpu_torch.datasets.registry import dataset_from_opts
 from doubletake_tpu_torch.models import cost_volume as tcv
 from doubletake_tpu_torch.ops import fused_volume as fv
@@ -216,7 +216,7 @@ def options(cls, **extra):
 @pytest.fixture(scope="module")
 def tiny_batch():
     ds = dataset_from_opts(options(Options), split="test")
-    cur_np, src_np = next(iter(DataLoader(ds, 2, num_workers=2)))
+    cur_np, src_np = collate([ds[0], ds[1]])
     rng = np.random.RandomState(4)
     depth = cur_np["depth_bhw1"]
     valid = np.isfinite(depth) & (rng.rand(*depth.shape) < 0.6)

@@ -31,7 +31,7 @@ from doubletake_tpu.runners import common as jcommon
 from doubletake_tpu.training import train_loop as jtrain
 
 from doubletake_tpu_torch.checkpoints.convert import variables_to_state_dict
-from doubletake_tpu_torch.data.loader import DataLoader
+from doubletake_tpu_torch.data.loader import DataLoader, collate
 from doubletake_tpu_torch.datasets.registry import dataset_from_opts
 from doubletake_tpu_torch.runners import common
 from doubletake_tpu_torch.training import distributed, train_loop
@@ -48,6 +48,7 @@ from test_torch_training import (  # noqa: F401
 from doubletake_tpu_torch.options import Options
 
 JOIN_TIMEOUT_S = 480.0
+STAGED_KEYS = ("frames_fhw3", "frame_index_b")     # a loader batch's staged frames, cur side
 GROUP_TIMEOUT_S = 300.0
 
 
@@ -56,7 +57,7 @@ def hinted_batch(b, seed=4):
     the hint MLP gets a gradient), as tests/test_torch_training.py's
     tiny_setup makes its batch of 2."""
     ds = dataset_from_opts(options(Options), split="train")
-    cur_np, src_np = next(iter(DataLoader(ds, b, num_workers=2)))
+    cur_np, src_np = collate([ds[i] for i in range(b)])
     rng = np.random.RandomState(seed)
     depth = cur_np["depth_bhw1"]
     valid = np.isfinite(depth) & (rng.rand(*depth.shape) < 0.6)
@@ -69,7 +70,7 @@ def hinted_batch(b, seed=4):
 
 
 def rows(batch, lo, hi):
-    """Rows [lo, hi) of a numpy (cur, src) batch."""
+    """Rows [lo, hi) of a (cur, src) batch of numpy arrays or tensors."""
     return tuple({k: v[lo:hi] for k, v in part.items()} for part in batch)
 
 
@@ -154,7 +155,8 @@ def test_two_gloo_ranks_match_plain_collective(tmp_path, monkeypatch):
     batches = iter(loader)
     batch = next(batches)
     batches.close()
-    shards = [train_loop.train_batch(*rows(batch, 2 * r, 2 * r + 2), "cpu") for r in range(2)]
+    whole = train_loop.train_batch(*batch, "cpu")
+    shards = [rows(whole, 2 * r, 2 * r + 2) for r in range(2)]
     gens = [train_loop.rank_generator(o, r) for r in range(2)]
     for i in range(2):
         draws = [train_loop.draw_step_randomness(g, 2, s["image_bkhw3"].shape[1])
@@ -188,14 +190,18 @@ def test_loader_shard():
             parts.append([b for _, b in zip(range(len(ref)), loader)])
         for i, want in enumerate(ref):
             for key, value in want[0].items():
+                if key in STAGED_KEYS:
+                    continue
                 got = [parts[r][i][0][key] for r in range(n)]
                 if isinstance(value, list):
                     assert sum(got, []) == value, (n, i, key)
                 else:
                     np.testing.assert_array_equal(np.concatenate(got), value)
-            np.testing.assert_array_equal(
-                np.concatenate([parts[r][i][1]["image_bkhw3"] for r in range(n)]),
-                want[1]["image_bkhw3"])
+            # the images, gathered from each batch's staged frames
+            got = [common.device_batch(*parts[r][i], "cpu") for r in range(n)]
+            images = common.device_batch(*want, "cpu")
+            for part, key in ((0, "image_bhw3"), (1, "image_bkhw3")):
+                assert torch.equal(torch.cat([g[part][key] for g in got]), images[part][key])
     with pytest.raises(ValueError, match="divides"):
         DataLoader(ds, 4, drop_last=True, shard=(0, 3))
     with pytest.raises(ValueError, match="drop_last"):
@@ -241,8 +247,8 @@ def test_train_two_processes_on_cpu(tmp_path, monkeypatch):
     jmodel = jcommon.build_model(options(JaxOptions, image_encoder_name="efficientnet",
                                          matching_encoder_type="resnet"))
     variables = jax_load_params(res["final_weights"])
-    cur_np, src_np = next(iter(DataLoader(dataset_from_opts(lo, split="val"), 2,
-                                          num_workers=2)))
+    ds = dataset_from_opts(lo, split="val")
+    cur_np, src_np = collate([ds[0], ds[1]])
     ref = jax.jit(jmodel.apply)(variables, *jcommon.device_batch(cur_np, src_np))
     with torch.no_grad():
         out = model(*common.device_batch(cur_np, src_np, "cpu"))["depth_pred_s0_bhw1"]

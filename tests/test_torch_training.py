@@ -37,7 +37,7 @@ from doubletake_tpu.utils import geometry as jgeo
 
 from doubletake_tpu_torch import losses as tlosses
 from doubletake_tpu_torch.checkpoints.convert import variables_to_state_dict
-from doubletake_tpu_torch.data.loader import DataLoader
+from doubletake_tpu_torch.data.loader import collate
 from doubletake_tpu_torch.datasets.registry import dataset_from_opts
 from doubletake_tpu_torch.models.layers import BatchNorm2d
 from doubletake_tpu_torch.options import Options
@@ -276,7 +276,7 @@ def tiny_setup():
     jo = options(JaxOptions)
     jmodel = jcommon.build_model(jo)
     ds = dataset_from_opts(options(Options), split="train")
-    cur_np, src_np = next(iter(DataLoader(ds, 2, num_workers=2)))
+    cur_np, src_np = collate([ds[0], ds[1]])
     rng = np.random.RandomState(4)
     depth = cur_np["depth_bhw1"]
     valid = np.isfinite(depth) & (rng.rand(*depth.shape) < 0.6)
@@ -545,7 +545,7 @@ def test_train_end_to_end(tmp_path, monkeypatch):
     variables = jax_load_params(ckpt)
     # one numpy batch feeds both packages
     ds = dataset_from_opts(lo, split="val")
-    cur_np, src_np = next(iter(DataLoader(ds, 2, num_workers=2)))
+    cur_np, src_np = collate([ds[0], ds[1]])
     cur, src = jcommon.device_batch(cur_np, src_np)
     ref = jax.jit(jmodel.apply)(variables, cur, src)["depth_pred_s0_bhw1"]
     pc, ps = common.device_batch(cur_np, src_np, "cpu")
