@@ -43,14 +43,19 @@ from doubletake_tpu_torch.ops.fused_volume import (
     warp_planes,
 )
 from doubletake_tpu_torch.ops.resize import interpolate_nearest
-from doubletake_tpu_torch.utils.geometry import linspace01
+from doubletake_tpu_torch.utils.geometry import device_constant, linspace01
 
 
 def generate_depth_planes(min_depth: float, max_depth: float, num_planes: int, device=None):
-    """Log-spaced depth planes (reference cost_volume.py:96-130)."""
-    lo = torch.log(torch.tensor(min_depth, dtype=torch.float32))
-    span = torch.log(torch.tensor(max_depth / min_depth, dtype=torch.float32))
-    return torch.exp(lo + span * linspace01(num_planes)).to(device)
+    """Log-spaced depth planes (reference cost_volume.py:96-130), computed
+    on the host and copied once per (planes, device) (``device_constant``)."""
+
+    def build():
+        lo = torch.log(torch.tensor(min_depth, dtype=torch.float32))
+        span = torch.log(torch.tensor(max_depth / min_depth, dtype=torch.float32))
+        return torch.exp(lo + span * linspace01(num_planes))
+
+    return device_constant(("depth_planes", min_depth, max_depth, num_planes), build, device)
 
 
 def _border_mask(px, py, h, w):

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from doubletake_tpu_torch.utils.geometry import device_constant
+
 
 def to_nchw(x_nhwc):
     return x_nhwc.permute(0, 3, 1, 2)
@@ -34,12 +36,18 @@ def interpolate_nearest(x_nhwc, out_hw):
         return x_nhwc
     out = x_nhwc
     if oh != h:
-        ys = np.clip(np.floor(np.arange(oh) * (h / oh)).astype(np.int64), 0, h - 1)
-        out = out[:, torch.as_tensor(ys, device=x_nhwc.device)]
+        out = out[:, _nearest_index(h, oh, x_nhwc.device)]
     if ow != w:
-        xs = np.clip(np.floor(np.arange(ow) * (w / ow)).astype(np.int64), 0, w - 1)
-        out = out[:, :, torch.as_tensor(xs, device=x_nhwc.device)]
+        out = out[:, :, _nearest_index(w, ow, x_nhwc.device)]
     return out
+
+
+def _nearest_index(size: int, out_size: int, device):
+    """floor(dst * size / out_size) for dst < out_size, built once per
+    (sizes, device) (``device_constant``)."""
+    return device_constant(("nearest_index", size, out_size), lambda: torch.as_tensor(
+        np.clip(np.floor(np.arange(out_size) * (size / out_size)).astype(np.int64),
+                0, size - 1)), device)
 
 
 def interpolate_bilinear(x_nhwc, out_hw):

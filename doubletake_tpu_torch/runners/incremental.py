@@ -21,8 +21,9 @@ ignore the option, as theirs do.
 The volume lives on the device for the whole scan and the fuse step updates
 it in place. Each frame's hint / model / fuse times are taken with CUDA
 events on the GPU (host clock on the CPU) and stored with its metrics. The
-step is three calls (``make_split_steps``) in either case: eager PyTorch has
-no one-dispatch step to split. With ``split_timing`` the device is
+step is three stages (``make_split_steps``); on the card each is the replay
+of a CUDA graph (``runners.graphs``), and the clock's marks fall between
+the replays. With ``split_timing`` the device is
 synchronised after each of them and the stages are timed by the host clock,
 as the JAX runner's split steps report ``hint_time`` and ``model_time``;
 the src views' cached matching features are used in both modes, so both
@@ -41,14 +42,18 @@ import torch
 from doubletake_tpu_torch.data.loader import DataLoader
 from doubletake_tpu_torch.datasets.registry import dataset_from_opts
 from doubletake_tpu_torch.options import Options
-from doubletake_tpu_torch.runners import common
+from doubletake_tpu_torch.runners import common, graphs
 from doubletake_tpu_torch.runners.no_hint import unique_scans
-from doubletake_tpu_torch.tools.tsdf import integrate_depth
+from doubletake_tpu_torch.tools.tsdf import TSDF, integrate_depth
 from doubletake_tpu_torch.utils.metrics import ResultsAverager
 from doubletake_tpu_torch.utils.tracing import spanned
 from doubletake_tpu_torch.utils.visualization import quick_viz_export
 
 FEAT_CACHE_MAX = 64            # keyframe tuples reach back a few dozen frames
+# what each stage reads of the frame and of the forward's outputs
+HINT_KEYS = ("world_T_cam_b44", "hint_world_T_cam_b44", "invK_s0_b44")
+FUSE_KEYS = ("cam_T_world_b44", "K_s0_b44")
+FUSE_OUT_KEYS = ("depth_pred_s0_bhw1", "lowest_cost_bhw", "overall_mask_bhw")
 
 
 def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opts=None):
@@ -58,21 +63,68 @@ def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opt
     tsdf). ``src_feats`` are the src views' cached matching features (every
     src view of a sequential scan was the cur frame earlier), so the
     matching encoder runs on one image instead of model_num_views.
+
+    On a CUDA volume with the model in eval mode each stage is the replay
+    of a CUDA graph, kept with the model across steps and sessions
+    (``runners.graphs``); elsewhere (the CPU, training) the stages run
+    eagerly. On the graph path the step hands back outputs of their own,
+    and it moves tensors of its callers to other storage with
+    ``Tensor.set_``, keeping their values:
+
+    * the volume's ``values`` and ``weights`` onto the storage the graphs
+      read (the previous session's, where the shape is the same), so views
+      of them taken before the step no longer see the fused volume; and
+    * at a stage's capture, the frame's tensors it reads (``cur``, ``src``,
+      ``src_feats``, the hint) onto copies, so a tensor that shared its
+      storage with them (other frames' views of one staged block) no longer
+      shares it.
+
+    The weights are read once, at the first graphed frame: a step assumes
+    them fixed while it is used.
     """
     hint_step, forward_step, fuse_step = make_split_steps(
         model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opts)
+    settings = (hint_h, hint_w, raycast_samples, fusion_max_depth, cfg,
+                None if opts is None else (opts.raycast_mip, opts.mask_pred_depth,
+                                           opts.fusion_use_raw_lowest_cost))
+    weights_at = None
 
     @spanned("runner.step")
     def step(tsdf, cur, src, src_feats=None, clock=None):
+        nonlocal weights_at
         if clock is not None:
             clock.mark("start")
-        hint = hint_step(tsdf, cur)
+        stages = graphs.stages(model, tsdf.values.device)
+        values, weights, voxel_size = tsdf.values, tsdf.weights, tsdf.voxel_size
+        if stages is not None:
+            values, weights = stages.bind(tsdf)
+            if weights_at is None:
+                weights_at = stages.weights_key()
+
+        def run(name, fn, *args):
+            if stages is None:
+                return fn(*args)
+            if name == "forward":
+                return stages.run_on_weights(weights_at, fn, args)
+            return stages.run_on_volume((name, voxel_size, settings), fn, args)
+
+        def on(origin):   # the volume as the graphs read it, its origin an argument
+            return TSDF(values, weights, origin, voxel_size)
+
+        def fuse(o, c, origin):   # hands back nothing: no graph keeps the volume
+            fuse_step(on(origin), o, c)
+
+        hint = run("hint", lambda c, origin: hint_step(on(origin), c),
+                   {k: cur[k] for k in HINT_KEYS if k in cur}, tsdf.origin)
         if clock is not None:
             clock.mark("hint")
-        out = forward_step(cur, src, hint, src_feats)
+        if src_feats is not None:   # the source images are not read
+            src = {k: v for k, v in src.items() if k != "image_bkhw3"}
+        out = run("forward", forward_step, cur, src, hint, src_feats)
         if clock is not None:
             clock.mark("model")
-        fuse_step(tsdf, out, cur)
+        run("fuse", fuse, {k: out[k] for k in FUSE_OUT_KEYS if out.get(k) is not None},
+            {k: cur[k] for k in FUSE_KEYS}, tsdf.origin)
         if clock is not None:
             clock.mark("fuse")
         return out, hint, tsdf

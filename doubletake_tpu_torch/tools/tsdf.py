@@ -51,7 +51,7 @@ import torch
 
 from doubletake_tpu_torch.ops.grid_sample import grid_sample_3d
 from doubletake_tpu_torch.ops.integrate import fused_integrate, voxel_update_plain
-from doubletake_tpu_torch.utils.geometry import linspace01
+from doubletake_tpu_torch.utils.geometry import device_constant, linspace01
 from doubletake_tpu_torch.utils.tracing import spanned
 
 VOX_MOD = 8  # volume dims rounded up to multiples of 8 (tsdf.py:59)
@@ -312,6 +312,22 @@ def prepare_static(tsdf: TSDF) -> StaticVolume:
                         origin=tsdf.origin, voxel_size=tsdf.voxel_size)
 
 
+def _box(dims, device):
+    """(3, 1) float32: the interior box's upper corner, dims - 1, built on
+    the host once per (dims, device)."""
+    X, Y, Z = dims
+    return device_constant(("box", X, Y, Z), lambda: torch.tensor(
+        [X - 1, Y - 1, Z - 1], dtype=torch.float32)[:, None], device)
+
+
+def _box_hi(dims, device):
+    """The largest voxel coordinate a trilinear sample may start from, per
+    axis: dims - 1 - 1e-4, computed on the host once per (dims, device)."""
+    X, Y, Z = dims
+    return device_constant(("box_hi", X, Y, Z), lambda: torch.tensor(
+        [X - 1, Y - 1, Z - 1], dtype=torch.float32) - 1e-4, device)
+
+
 def _sampler(vol, ov, dv):
     """Trilinear (value, weight, min contributing-corner weight) at camera
     depths, for rays v(s) = ov + s * dv in voxel coordinates.
@@ -327,7 +343,7 @@ def _sampler(vol, ov, dv):
     vals = vol.values.reshape(-1)
     wts = vol.weights.reshape(-1)
     rounded = isinstance(vol, StaticVolume)
-    hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=vals.device) - 1e-4
+    hi = _box_hi(vol.dims, vals.device)
 
     def sample(zs):                                            # zs: (M, N)
         v = ov[None] + zs[:, None, :] * dv[None]               # (M, 3, N)
@@ -408,9 +424,8 @@ def _mip_coarse(vol, ov, dv, zs, hit_box, sample, min_depth, max_depth, weight_e
     with the dense crossing rule, so a crossing both marches find has the
     same bracket. Returns (valid, v0, v1, z_lo) of the first crossing."""
     mip = build_mip(vol)
-    X, Y, Z = vol.dims
     sc, n = zs.shape
-    hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=zs.device) - 1e-4
+    hi = _box_hi(vol.dims, zs.device)
     v = ov[None] + zs[:, None, :] * dv[None]                                   # (Sc, 3, N)
     v = torch.minimum(torch.nan_to_num(v.permute(0, 2, 1), nan=0.0).clamp(min=0.0), hi)
     cell = torch.floor(v).long() // MIP_FACTOR
@@ -434,7 +449,8 @@ def _mip_coarse(vol, ov, dv, zs, hit_box, sample, min_depth, max_depth, weight_e
     wobs = wmins > weight_epsilon
     # pairs of consecutive samples inside each window, windows in ray order;
     # a clipped index repeats a sample, and (v > 0) & (v <= 0) never holds
-    p0 = torch.tensor([c * wn + j for c in range(3) for j in range(wn - 1)], device=zs.device)
+    p0 = device_constant(("mip_pairs", wn), lambda: torch.tensor(
+        [c * wn + j for c in range(3) for j in range(wn - 1)]), zs.device)
     ok = torch.stack(any_run).repeat_interleave(wn - 1, 0)
     cross = ((wvals[p0] > 0) & (wvals[p0 + 1] <= 0) & wobs[p0] & wobs[p0 + 1] & ok
              & hit_box[None])
@@ -501,7 +517,7 @@ def raycast(vol, world_T_cam, invK, height: int, width: int,
     # rays in voxel coordinates, v(s) = ov + s * dv, the batch's rays side by side
     ov = torch.cat(ovs, 1)                                                      # (3, B*n)
     dv = torch.cat(dvs, 1)                                                      # (3, B*n)
-    dims = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=dev)[:, None]
+    dims = _box(vol.dims, dev)
 
     # slab clip against the interior box [0, dims - 1] (trilinear support)
     tiny = dv.abs() <= 1e-12

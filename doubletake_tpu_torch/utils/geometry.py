@@ -89,16 +89,37 @@ def normalize_vectors(v, dim: int, eps: float = 1e-12):
     return v / torch.clamp(norm, min=eps)
 
 
+_constants: dict = {}   # (key, device) -> tensor
+
+
+def device_constant(key, build, device=None) -> torch.Tensor:
+    """The tensor ``build()`` makes on the host, copied to ``device`` once
+    and kept under ``(key, device)``: later calls reuse it and neither copy
+    nor synchronise, so a CUDA graph can capture their callers. ``key``
+    names every value ``build`` depends on. The tensor is shared by every
+    caller: read it, never write to it."""
+    device = torch.device("cpu" if device is None else device)
+    t = _constants.get((key, device))
+    if t is None:
+        t = _constants[(key, device)] = build().to(device)
+    return t
+
+
 def linspace01(num: int, device=None) -> torch.Tensor:
     """[0, 1] in ``num`` float32 steps, rounded like the JAX package's
     ``jnp.linspace(0, 1, num)`` on the CPU: i * float32(1/(num-1)), the last
-    exactly 1. (``torch.linspace`` rounds some steps the other way.)"""
-    if num == 1:
-        return torch.zeros(1, dtype=torch.float32, device=device)
-    step = torch.tensor(1.0 / (num - 1), dtype=torch.float32)
-    ramp = torch.arange(num, dtype=torch.float32) * step
-    ramp[-1] = 1.0
-    return ramp.to(device)
+    exactly 1. (``torch.linspace`` rounds some steps the other way.) Built
+    once per (num, device) (``device_constant``)."""
+
+    def build():
+        if num == 1:
+            return torch.zeros(1, dtype=torch.float32)
+        step = torch.tensor(1.0 / (num - 1), dtype=torch.float32)
+        ramp = torch.arange(num, dtype=torch.float32) * step
+        ramp[-1] = 1.0
+        return ramp
+
+    return device_constant(("linspace01", num), build, device)
 
 
 def gaussian_kernel_1d(kernel_size: int, sigma: float, dtype=torch.float32, device=None):

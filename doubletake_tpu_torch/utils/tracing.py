@@ -16,7 +16,9 @@
   Nothing is written to disk.
 * ``count(name, n)`` and ``counters()``: integer counters, always on (the
   kernels' launches, ``ops.fused_volume.launches`` and
-  ``ops.integrate.launches``).
+  ``ops.integrate.launches``, which count the launches of CUDA graph
+  replays too; the online step's ``runner.graph_captures`` and
+  ``runner.graph_replays``, ``runners/graphs.py``).
 * ``StageClock``: CUDA events at a step's stage marks (the runners'
   hint / model / fuse times).
 
