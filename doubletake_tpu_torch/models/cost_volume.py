@@ -121,7 +121,10 @@ class FeatureVolume(nn.Module):
                 max_depth, hint=None, return_mask: bool = False):
         """hint (hint MLP only): dict with "depth_hint_bhw1" (any resolution,
         nearest-resized here), "hint_mask_bhw1" (bool) and
-        "sampled_weights_bhw1". Returns (volume_bhwd, lowest_cost_bhw,
+        "sampled_weights_bhw1". An all-invalid hint resizes to the same
+        zeros from any size, and callers rely on it: the offline runner's
+        pass 1 makes its empty hint at pass 2's hint size, so one graph
+        serves both passes. Returns (volume_bhwd, lowest_cost_bhw,
         planes_d, overall_mask_bhw)."""
         b, h, w, _ = cur_feats_bhwc.shape
         dev, dtype = cur_feats_bhwc.device, cur_feats_bhwc.dtype

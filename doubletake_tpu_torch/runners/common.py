@@ -123,6 +123,10 @@ def empty_hint(b: int, h: int, w: int, device):
             "sampled_weights_bhw1": zero}
 
 
+# what a hint's raycast reads of the frame (``render_hint``)
+HINT_KEYS = ("world_T_cam_b44", "hint_world_T_cam_b44", "invK_s0_b44")
+
+
 def render_hint(vol, cur, hint_h, hint_w, raycast_samples, max_depth, use_mip=False):
     """Hint dict for the model, raycast from ``vol`` (a running ``TSDF`` or
     a ``StaticVolume``) at every pose of the batch: cur["world_T_cam_b44"],

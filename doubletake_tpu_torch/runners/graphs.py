@@ -1,9 +1,13 @@
-"""CUDA graphs of the online step's stages (``runners.incremental.make_step``).
+"""CUDA graphs of the runners' stages: the online step's
+(``runners.incremental.make_step``) and the offline passes'
+(``runners.offline_two_pass``).
 
 Issued one by one from Python, a frame's few hundred small operations keep
 the card idle most of the time. On a CUDA device, with the model in eval
-mode, the step runs each of its three stages (the hint raycast, the forward
-and the fuse) as the replay of a CUDA graph: one launch a stage.
+mode, the online step runs each of its three stages (the hint raycast, the
+forward and the fuse) as the replay of a CUDA graph: one launch a stage.
+Offline, a batch's forward is one replay in either pass, and pass 2's
+raycast of the static hint volume another.
 
 * ``capture(fn, args, pool)`` runs ``fn`` once under capture, the storage
   of ``args`` its static inputs, and returns a ``StageGraph``. Calling it
@@ -25,14 +29,18 @@ and the fuse) as the replay of a CUDA graph: one launch a stage.
   storage. The graphs last across sessions where sessions repeat the
   volume's shape, as every reader's do: the synthetic reader's rooms are
   one size, and the others have no bounds of their own, so each scan gets
-  the same +-10 m cube (``runners.common.scene_bounds_for_fusion``). The
-  model keeps the storage of one volume, of the latest shape, and a later
-  volume of that shape is copied into it and its values and weights moved onto it
-  (``Stages.bind``, ``Tensor.set_``). A volume moved there before and still
-  alive gets storage of its own back first, with its contents. A volume of
-  another shape takes the place: the raycast's and the fuse's graphs go
-  with the storage they read, and the fuse hands back nothing, so no graph
-  keeps an old volume.
+  the same +-10 m cube (``runners.common.scene_bounds_for_fusion``). A
+  ``Slot`` keeps the storage of one volume, of the latest shape, and a
+  later volume of that shape is copied into it once, at its first stage,
+  and its values and weights moved onto it (``Slot.bind``,
+  ``Tensor.set_``). A volume moved there before and still alive gets
+  storage of its own back first, with its contents. A volume of another
+  shape takes the place: the graphs that read the slot go with the storage
+  they read, and the fuse hands back nothing, so no graph keeps an old
+  volume. A model has two slots: the online step's running volume, read by
+  its raycast and fuse, and pass 2's static hint volume, read by the
+  raycasts of every batch shape and pose key; so each holds one volume,
+  however many graphs read it.
 * The graphs of one model share one memory pool. That is safe because no
   graph reads another's buffers: inputs are copied in, outputs are copied
   out right after their replay, and replays run one at a time on one stream.
@@ -92,10 +100,12 @@ def owned(tree):
     return _map(torch.Tensor.clone, tree)
 
 
-def aliases(tree):
-    """The nest with every tensor replaced by another tensor object on the
-    same storage (a view of all of it)."""
-    return _map(lambda t: t.view(t.shape), tree)
+def alias(t):
+    """Another tensor object on ``t``'s storage. Not a view: a view keeps
+    its base tensor object alive, and with it whatever storage that object
+    is later moved to (``_move_to_copy``)."""
+    return torch.empty(0, dtype=t.dtype, device=t.device).set_(
+        t.untyped_storage(), t.storage_offset(), t.shape, t.stride())
 
 
 def copy_into(static, tree):
@@ -140,8 +150,18 @@ def capture(fn, args, pool) -> StageGraph:
     largest stage sets the memory peak, and a copy of its inputs would add
     to it. Afterwards the caller's tensors move to copies of their own
     (``Tensor.set_``), so later frames copied into the static inputs do not
-    overwrite them."""
-    inputs = aliases(args)
+    overwrite them. A tensor that ``args`` holds twice (an empty hint's
+    zeros, say) gets a copy for its second place: later arguments may
+    differ there, and one static input must not be copied over another."""
+    seen = set()
+
+    def static(t):
+        if id(t) in seen:
+            return t.clone()
+        seen.add(id(t))
+        return alias(t)
+
+    inputs = _map(static, args)
     before = _launches()
     with tracing.span("runner.graph_capture"):
         graph, outputs = _record(fn, inputs, pool)
@@ -164,32 +184,23 @@ def _move_to_copy(t):
     t.set_(t.clone())
 
 
-class Stages:
-    """One model's stage graphs (module doc)."""
+class Slot:
+    """The storage of one volume, of the latest shape, and the graphs that
+    read it (module doc)."""
 
-    def __init__(self, model):
-        self.weights = list(model.parameters()) + list(model.buffers())
-        self.pool = torch.cuda.graph_pool_handle()
+    def __init__(self):
         # the volume's shape, the (values, weights) the graphs read, and weak
-        # references to the tensors put on them; the raycast's and the
-        # fuse's graphs, which read them
-        self.volume, self.bound, self.on_volume = None, (), {}
-        # the weights' key and the forward's graphs, which read them
-        self.weights_at, self.on_weights = None, {}
-
-    def weights_key(self) -> tuple:
-        """The weights' storage and versions: a graph reads them by address,
-        and K1's packed copy of its MLP is made when the forward is captured."""
-        return tuple((t.data_ptr(), t._version) for t in self.weights)
+        # references to the tensors put on them; the graphs
+        self.volume, self.bound, self.graphs = None, (), {}
 
     def bind(self, vol):
         """Put ``vol``'s values and weights on the storage that the graphs
-        read (module doc; ``Tensor.set_``, so every holder of those tensors
-        follows). Returns the (values, weights) tensors those graphs read."""
+        read (``Tensor.set_``, so every holder of those tensors follows).
+        Returns the (values, weights) tensors those graphs read."""
         shape = (tuple(vol.values.shape), vol.values.dtype, vol.values.device)
         if self.volume is None or self.volume[0] != shape:
-            self.volume = (shape, aliases((vol.values, vol.weights)))
-            self.on_volume = {}
+            self.volume = (shape, (alias(vol.values), alias(vol.weights)))
+            self.graphs = {}
         elif _storage(vol.values) != _storage(self.volume[1][0]):
             for t, static in zip((r() for r in self.bound), self.volume[1]):
                 if t is not None and _storage(t) == _storage(static):
@@ -200,9 +211,27 @@ class Stages:
         self.bound = (weakref.ref(vol.values), weakref.ref(vol.weights))
         return self.volume[1]
 
-    def run_on_volume(self, key, fn, args):
-        """``fn(*args)``, a stage that reads the bound volume (``run``)."""
-        return self._run(self.on_volume, key, fn, args)
+
+class Stages:
+    """One model's stage graphs (module doc)."""
+
+    def __init__(self, model):
+        self.weights = list(model.parameters()) + list(model.buffers())
+        self.pool = torch.cuda.graph_pool_handle()
+        # the online step's running volume and pass 2's static hint volume
+        self.running, self.static = Slot(), Slot()
+        # the weights' key and the forward's graphs, which read them
+        self.weights_at, self.on_weights = None, {}
+
+    def weights_key(self) -> tuple:
+        """The weights' storage and versions: a graph reads them by address,
+        and K1's packed copy of its MLP is made when the forward is captured."""
+        return tuple((t.data_ptr(), t._version) for t in self.weights)
+
+    def run_on_volume(self, slot: Slot, key, fn, args):
+        """``fn(*args)``, a stage that reads the volume bound to ``slot``
+        (``run``)."""
+        return self._run(slot.graphs, key, fn, args)
 
     def run_on_weights(self, weights_key, fn, args):
         """``fn(*args)``, the forward under weights ``weights_key`` (``run``)."""

@@ -50,8 +50,8 @@ from doubletake_tpu_torch.utils.tracing import spanned
 from doubletake_tpu_torch.utils.visualization import quick_viz_export
 
 FEAT_CACHE_MAX = 64            # keyframe tuples reach back a few dozen frames
-# what each stage reads of the frame and of the forward's outputs
-HINT_KEYS = ("world_T_cam_b44", "hint_world_T_cam_b44", "invK_s0_b44")
+# what the fuse reads of the frame and of the forward's outputs (the
+# raycast: common.HINT_KEYS)
 FUSE_KEYS = ("cam_T_world_b44", "K_s0_b44")
 FUSE_OUT_KEYS = ("depth_pred_s0_bhw1", "lowest_cost_bhw", "overall_mask_bhw")
 
@@ -97,7 +97,7 @@ def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opt
         stages = graphs.stages(model, tsdf.values.device)
         values, weights, voxel_size = tsdf.values, tsdf.weights, tsdf.voxel_size
         if stages is not None:
-            values, weights = stages.bind(tsdf)
+            values, weights = stages.running.bind(tsdf)
             if weights_at is None:
                 weights_at = stages.weights_key()
 
@@ -106,7 +106,7 @@ def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opt
                 return fn(*args)
             if name == "forward":
                 return stages.run_on_weights(weights_at, fn, args)
-            return stages.run_on_volume((name, voxel_size, settings), fn, args)
+            return stages.run_on_volume(stages.running, (name, voxel_size, settings), fn, args)
 
         def on(origin):   # the volume as the graphs read it, its origin an argument
             return TSDF(values, weights, origin, voxel_size)
@@ -115,7 +115,7 @@ def make_step(model, cfg, hint_h, hint_w, raycast_samples, fusion_max_depth, opt
             fuse_step(on(origin), o, c)
 
         hint = run("hint", lambda c, origin: hint_step(on(origin), c),
-                   {k: cur[k] for k in HINT_KEYS if k in cur}, tsdf.origin)
+                   {k: cur[k] for k in common.HINT_KEYS if k in cur}, tsdf.origin)
         if clock is not None:
             clock.mark("hint")
         if src_feats is not None:   # the source images are not read

@@ -11,6 +11,18 @@ march. The final fusion at the score resolution (0.02 m / 3.5 m for
 published scores) runs frame by frame, since the running weighted mean
 depends on the order, when ``run_fusion`` is set.
 
+On a CUDA device with the model in eval mode, each batch's forward is the
+replay of a CUDA graph kept with the model (``runners.graphs``): one graph
+a batch shape serves both passes, pass 1's empty hint being a hint of pass
+2's shape, so the batch's inputs and outputs are held once. Pass 2's
+raycast is one more replay; its graphs, one a batch shape and pose key,
+all read the model's one static-volume slot, into which each session's
+static volume is copied once. A shape runs eagerly at its first use and
+is captured at its second, so a scan's smaller last batch runs eagerly
+until its shape comes back. The per-frame fuses stay eager; with no sync
+between batches the host issues them while the card works. Elsewhere (the
+CPU, training) both passes run eagerly.
+
 Both volumes are saved in the JAX package's npz format (``*_hint_tsdf.npz``,
 ``*_tsdf.npz``), and the final volume's mesh as ``<scan>.ply``, after pass
 2's timed window.
@@ -26,27 +38,50 @@ import torch
 from doubletake_tpu_torch.data.loader import DataLoader
 from doubletake_tpu_torch.datasets.registry import dataset_from_opts
 from doubletake_tpu_torch.options import Options
-from doubletake_tpu_torch.runners import common
+from doubletake_tpu_torch.runners import common, graphs
 from doubletake_tpu_torch.runners.no_hint import unique_scans
-from doubletake_tpu_torch.tools.tsdf import integrate_depth, prepare_static
+from doubletake_tpu_torch.tools.tsdf import StaticVolume, integrate_depth, prepare_static
 from doubletake_tpu_torch.utils.metrics import ResultsAverager
 from doubletake_tpu_torch.utils.tracing import span, spanned
 
 HINT_MAX_DEPTH = 3.0  # the hint volume's fusion range (test_offline_two_pass.py:47-69)
 
 
+def make_forward(model, device):
+    """(stages, forward): the model's ``graphs.Stages`` on ``device`` (None
+    where it runs eagerly) and ``forward(cur, src, hint)``, the model's
+    outputs with ``hint``. On a CUDA device with the model in eval mode
+    ``forward`` replays the graph of the arguments' shapes (module doc),
+    under the weights as they are now: the caller keeps them fixed while it
+    uses ``forward``. Elsewhere it runs the model eagerly."""
+
+    @torch.no_grad()
+    def forward(cur, src, hint):
+        return model(cur, src, hint=hint, return_mask=True)
+
+    stages = graphs.stages(model, device)
+    if stages is None:
+        return None, forward
+    weights_at = stages.weights_key()
+    return stages, lambda cur, src, hint: stages.run_on_weights(
+        weights_at, forward, (cur, src, hint))
+
+
 @torch.no_grad()
 def compute_hint_volume(opts, model, ds, scan_id, device):
     """Pass 1: empty-hint inference over ``ds`` fused into the locked hint
-    volume (the model's raw s0 depths, frame by frame)."""
+    volume (the model's raw s0 depths, frame by frame). The empty hint is
+    at image / 4, pass 2's hint size: the model resizes an all-invalid
+    hint to the same zeros from any size."""
     tsdf, cfg = common.make_hint_fuser(opts, ds, scan_id, device)
+    _, forward = make_forward(model, device)
     loader = DataLoader(ds, batch_size=opts.batch_size, shuffle=False,
                         num_workers=opts.num_workers)
     for cur_np, src_np in loader:
         with span("runner.pass1_batch"):
             cur, src = common.device_batch(cur_np, src_np, device)
             b, h, w = cur["image_bhw3"].shape[:3]
-            out = model(cur, src, hint=common.empty_hint(b, h, w, device), return_mask=True)
+            out = forward(cur, src, common.empty_hint(b, h // 4, w // 4, device))
             depth = out["depth_pred_s0_bhw1"]
             for i in range(b):
                 integrate_depth(tsdf, depth[i], cur["cam_T_world_b44"][i], cur["K_s0_b44"][i],
@@ -59,15 +94,41 @@ def make_pass2_step(model, hint_h, hint_w, raycast_samples, hint_max_depth):
     the static hint volume at every pose of the batch (at
     cur["hint_world_T_cam_b44"] where the revisit runner maps the poses
     into the volume's world frame; the model still sees the batch's own
-    poses) and runs the model with those hints. No fusion inside."""
+    poses) and runs the model with those hints. No fusion inside.
+
+    On a CUDA volume with the model in eval mode the raycast and the
+    forward each replay a CUDA graph (module doc), and the step hands back
+    tensors of its own. It moves tensors of its callers to other storage
+    with ``Tensor.set_``, keeping their values: the static volume's values
+    and weights onto the model's static-volume slot (``graphs.Slot``; the
+    previous session's storage, where the shape is the same), and at a
+    stage's capture the batch's tensors it reads onto copies. The model's
+    stages and the weights are read once, at the first call: a step
+    assumes them fixed while it is used."""
+    stages = forward = None
+    settings = ("pass2_hint", hint_h, hint_w, raycast_samples, hint_max_depth)
+
+    def render(vol, pose):
+        return common.render_hint(vol, pose, hint_h, hint_w, raycast_samples, hint_max_depth)
 
     @spanned("runner.step")
     @torch.no_grad()
     def step(static_vol, cur, src):
-        hint = common.render_hint(static_vol, cur, hint_h, hint_w, raycast_samples,
-                                  hint_max_depth)
+        nonlocal stages, forward
+        if forward is None:
+            stages, forward = make_forward(model, static_vol.values.device)
+        pose = {k: cur[k] for k in common.HINT_KEYS if k in cur}
+        if stages is None:
+            hint = render(static_vol, pose)
+        else:
+            values, weights = stages.static.bind(static_vol)
+            voxel_size = static_vol.voxel_size
+            hint = stages.run_on_volume(
+                stages.static, (settings, voxel_size),
+                lambda p, origin: render(StaticVolume(values, weights, origin, voxel_size), p),
+                (pose, static_vol.origin))
         model_cur = {k: v for k, v in cur.items() if k != "hint_world_T_cam_b44"}
-        return model(model_cur, src, hint=hint, return_mask=True), hint
+        return forward(model_cur, src, hint), hint
 
     return step
 

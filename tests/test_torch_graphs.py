@@ -1,13 +1,15 @@
-"""The online step as CUDA graph replays (``runners.graphs``,
-``runners.incremental.make_step``) and the constants that let a graph
-capture it (``utils.geometry.device_constant``).
+"""The online step and the offline passes as CUDA graph replays
+(``runners.graphs``, ``runners.incremental.make_step``,
+``runners.offline_two_pass``) and the constants that let a graph capture
+them (``utils.geometry.device_constant``).
 
 On the CPU: the constants equal what the step built before, bit for bit,
 and are built once; the eager step is the three stages called in turn; the
 graphed step's own code (its keys, the volume's slot, the copies in and out
 of the static buffers, the counters) runs with a stand-in for the CUDA
 graph that replays the captured stage on the static inputs, and matches the
-eager step bit for bit while its returned tensors outlive later frames.
+eager step bit for bit while its returned tensors outlive later frames. The
+offline passes likewise, at batch 2, against the passes as they ran eagerly.
 
 No JAX here: the card's test runs on the card with
 ``python -m pytest tests/test_torch_graphs.py -m card --noconftest``.
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import gc
 import json
+import weakref
 from collections import Counter, OrderedDict
 
 import numpy as np
@@ -25,12 +28,12 @@ import torch
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.profiler import ProfilerActivity, profile
 
-from doubletake_tpu_torch.data.loader import collate
+from doubletake_tpu_torch.data.loader import DataLoader, collate
 from doubletake_tpu_torch.datasets.synthetic import SyntheticDataset
 from doubletake_tpu_torch.models.cost_volume import generate_depth_planes
 from doubletake_tpu_torch.ops.resize import interpolate_nearest
 from doubletake_tpu_torch.options import Options
-from doubletake_tpu_torch.runners import common, graphs, incremental
+from doubletake_tpu_torch.runners import common, graphs, incremental, offline_two_pass
 from doubletake_tpu_torch.tools import tsdf as tsdf_mod
 from doubletake_tpu_torch.utils import tracing
 from doubletake_tpu_torch.utils.geometry import linspace01
@@ -240,8 +243,13 @@ def stand_in(monkeypatch):
 
 def graph_outputs(stages):
     """The tensors a model's captured graphs hold as outputs."""
-    return [t for g in [*stages.on_volume.values(), *stages.on_weights.values()]
-            if g is not None for t in graphs.tensors(g.outputs)]
+    return [t for g in all_graphs(stages) for t in graphs.tensors(g.outputs)]
+
+
+def all_graphs(stages):
+    """A model's captured graphs."""
+    return [g for d in (stages.running.graphs, stages.static.graphs, stages.on_weights)
+            for g in d.values() if g is not None]
 
 
 def test_graphed_step_hands_back_its_own_tensors(stand_in):
@@ -317,7 +325,7 @@ def test_graphs_follow_the_volume_shape_and_release_old_volumes(stand_in):
     assert len({volume(g).dims for g in set(shapes)}) == 3
     assert all(r.expired() for refs in stored[:3] for r in refs)
     assert not any(r.expired() for refs in stored[3:] for r in refs)
-    assert stand_in[model].volume[0][0] == tuple(vol.values.shape)
+    assert stand_in[model].running.volume[0][0] == tuple(vol.values.shape)
     vol_e = run_session(eager_step(model, cfg, opts, (8, 16)), volume(shapes[-1]), batches)[1]
     assert torch.equal(vol.values, vol_e.values) and torch.equal(vol.weights, vol_e.weights)
 
@@ -388,6 +396,258 @@ def test_capture_takes_back_its_launches_and_replays_add_them(monkeypatch):
     g(x)
     assert counter("test.kernel.launches") == launches + 4
     assert CountingGraph.replays == replays + 2
+
+
+def test_an_argument_held_twice_gets_two_static_inputs(monkeypatch):
+    """A capture whose arguments hold one tensor in two places (as an
+    empty hint holds its zeros) gives each place a static input of its
+    own, so a later call with two different tensors there reads both."""
+    monkeypatch.setattr(graphs, "_record", StandInGraph.record)
+    zero = torch.zeros(4)
+    g = graphs.capture(lambda h: {"y": h["a"] * 2 + h["b"]}, ({"a": zero, "b": zero},), None)
+    a, b = graphs.tensors(g.inputs)
+    assert a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr()
+    g({"a": zero, "b": zero})
+    out = g({"a": torch.full((4,), 1.0), "b": torch.full((4,), 5.0)})
+    assert torch.equal(out["y"], torch.full((4,), 7.0))
+
+
+def test_a_capture_keeps_no_caller_tensor_alive(monkeypatch):
+    """A capture's static inputs share its arguments' storage but are not
+    views of them: once the caller drops a tensor it passed (moved to a
+    copy at the capture), nothing keeps that tensor or its copy alive."""
+    monkeypatch.setattr(graphs, "_record", CountingGraph.record)
+    x = torch.arange(4.0)
+    storage = x.untyped_storage().data_ptr()
+    g = graphs.capture(lambda t: {"y": t * 2}, (x,), None)
+    moved = weakref.ref(x)
+    del x
+    gc.collect()
+    assert moved() is None
+    assert g.inputs[0]._base is None and g.inputs[0].untyped_storage().data_ptr() == storage
+
+
+HINT_MAX_DEPTH = offline_two_pass.HINT_MAX_DEPTH
+
+
+def offline_inputs(num_frames=14, settings=None, size=(32, 64)):
+    """A model, its options at batch 2 and a synthetic scan of
+    ``num_frames`` frames (the tiny model's 3-view tuples: 2 fewer)."""
+    opts = options(dict(TINY, batch_size=2) if settings is None else settings, "cpu")
+    model = common.init_or_load_params(opts, common.build_model(opts))
+    views = opts.model_num_views
+    ds = SyntheticDataset(split="test", image_height=size[0], image_width=size[1],
+                          tuple_size=views, num_images_in_tuple=views, num_frames=num_frames)
+    return opts, model, ds
+
+
+def offline_batches(opts, ds, device="cpu"):
+    """The scan's (cur, src) batches on ``device``, as the loader gives them."""
+    loader = DataLoader(ds, batch_size=opts.batch_size, shuffle=False, num_workers=0)
+    return [common.device_batch(cur_np, src_np, device) for cur_np, src_np in loader]
+
+
+def eager_hint_volume(opts, model, ds, batches, device="cpu"):
+    """Pass 1 as it ran before it graphed: the forward with an empty hint
+    at the image's size, each depth fused in turn."""
+    tsdf, cfg = common.make_hint_fuser(opts, ds, "synth0", device)
+    with torch.no_grad():
+        for cur, src in batches:
+            b, h, w = cur["image_bhw3"].shape[:3]
+            out = model(cur, src, hint=common.empty_hint(b, h, w, device), return_mask=True)
+            for i in range(b):
+                tsdf_mod.integrate_depth(tsdf, out["depth_pred_s0_bhw1"][i],
+                                         cur["cam_T_world_b44"][i], cur["K_s0_b44"][i], cfg)
+    return tsdf
+
+
+def eager_pass2(model, static, batches, hint_hw, samples):
+    """Pass 2's step as it ran before it graphed, over ``batches``."""
+    kept = []
+    with torch.no_grad():
+        for cur, src in batches:
+            hint = common.render_hint(static, cur, *hint_hw, samples, HINT_MAX_DEPTH)
+            model_cur = {k: v for k, v in cur.items() if k != "hint_world_T_cam_b44"}
+            kept.append((model(model_cur, src, hint=hint, return_mask=True), hint))
+    return kept
+
+
+def offline_session(opts, model, ds, batches, hint_hw, device="cpu"):
+    """One scan through the runner's passes: (hint volume, each pass-2
+    batch's (out, hint) as handed back, the static volume)."""
+    vol = offline_two_pass.compute_hint_volume(opts, model, ds, "synth0", torch.device(device))
+    step = offline_two_pass.make_pass2_step(model, *hint_hw, opts.raycast_samples,
+                                            HINT_MAX_DEPTH)
+    static = tsdf_mod.prepare_static(vol)
+    return vol, [step(static, cur, src) for cur, src in batches], static
+
+
+def counted(fn):
+    """(fn(), the captures and the replays it made)."""
+    before = counter("runner.graph_captures"), counter("runner.graph_replays")
+    out = fn()
+    return out, (counter("runner.graph_captures") - before[0],
+                 counter("runner.graph_replays") - before[1])
+
+
+def test_graphed_offline_passes_hand_back_their_own_tensors(stand_in):
+    """Two sessions of pass 1 and pass 2 at batch 2 through the graph path
+    with a stand-in graph. The forward is captured at pass 1's second
+    batch and serves both passes; pass 2's raycast at its second batch;
+    the second session captures nothing and replays each pass's forward
+    and pass 2's raycast once a batch. Hint volumes, depths and hints
+    equal the eager passes' bit for bit, and every batch's returned
+    tensors, kept to the end, still hold their own batch's values."""
+    opts, model, ds = offline_inputs()
+    batches = offline_batches(opts, ds)
+    n = len(batches)
+    assert n == 6 and all(cur["image_bhw3"].shape[0] == 2 for cur, _ in batches)
+    for session in range(2):
+        (vol_g, kept_g, static_g), made = counted(
+            lambda: offline_session(opts, model, ds, batches, (8, 16)))
+        vol_e = eager_hint_volume(opts, model, ds, batches)
+        assert same(vol_g.values, vol_e.values) and same(vol_g.weights, vol_e.weights)
+        static_e = tsdf_mod.prepare_static(vol_e)
+        assert same(static_g.values, static_e.values)
+        kept_e = eager_pass2(model, static_e, batches, (8, 16), opts.raycast_samples)
+        assert_same(kept_g, kept_e)
+        assert any(bool(h["hint_mask_bhw1"].any()) for _, h in kept_g)
+        held = {t.untyped_storage().data_ptr() for t in graph_outputs(stand_in[model])}
+        for out, hint in kept_g:
+            assert out["depth_pred_s0_bhw1"].untyped_storage().data_ptr() not in held
+            assert hint["hint_mask_bhw1"].untyped_storage().data_ptr() not in held
+        if session == 0:   # pass 1's first forward and pass 2's first raycast run eagerly
+            assert made == (2, (n - 1) + n + (n - 1))
+        else:
+            assert made == (0, n + 2 * n)
+    assert len(stand_in[model].on_weights) == 1 and len(stand_in[model].static.graphs) == 1
+
+
+def test_smaller_last_batch_runs_eagerly_until_its_shape_comes_back(stand_in):
+    """11 tuples at batch 2: pass 1's last batch of 1 runs eagerly; pass 2
+    captures its forward, the shape's second use, and runs its raycast
+    eagerly, a first use. Both passes equal the eager ones bit for bit."""
+    opts, model, ds = offline_inputs(num_frames=13)
+    batches = offline_batches(opts, ds)
+    assert [cur["image_bhw3"].shape[0] for cur, _ in batches] == [2] * 5 + [1]
+    vol_g, made = counted(lambda: offline_two_pass.compute_hint_volume(
+        opts, model, ds, "synth0", torch.device("cpu")))
+    assert made == (1, 4)
+    vol_e = eager_hint_volume(opts, model, ds, batches)
+    assert same(vol_g.values, vol_e.values) and same(vol_g.weights, vol_e.weights)
+    step = offline_two_pass.make_pass2_step(model, 8, 16, opts.raycast_samples, HINT_MAX_DEPTH)
+    static = tsdf_mod.prepare_static(vol_g)
+    kept_g, made = counted(lambda: [step(static, cur, src) for cur, src in batches])
+    # the raycast at batch 2 and the forward of 1; replays: 6 forwards, 4 raycasts
+    assert made == (2, 10)
+    assert_same(kept_g, eager_pass2(model, tsdf_mod.prepare_static(vol_e), batches, (8, 16),
+                                    opts.raycast_samples))
+
+
+def test_revisit_poses_get_their_own_raycast(stand_in):
+    """A batch with ``hint_world_T_cam_b44`` (the revisit runner's poses in
+    the volume's world frame) raycasts under a key of its own, eager at its
+    first use and captured at its second, while the forward replays the
+    graph it shares with the batches without; the hints are raycast at
+    those poses, equal to the eager step's bit for bit."""
+    opts, model, ds = offline_inputs()
+    batches = offline_batches(opts, ds)
+    vol, _, static = offline_session(opts, model, ds, batches, (8, 16))
+    shift = torch.eye(4)
+    shift[0, 3] = 0.1
+    moved = [(dict(cur, hint_world_T_cam_b44=shift @ cur["world_T_cam_b44"]), src)
+             for cur, src in batches[:3]]
+    stages = stand_in[model]
+    forwards, raycasts = set(stages.on_weights), len(stages.static.graphs)
+    step = offline_two_pass.make_pass2_step(model, 8, 16, opts.raycast_samples, HINT_MAX_DEPTH)
+    kept_g, made = counted(lambda: [step(static, cur, src) for cur, src in moved])
+    assert made == (1, 3 + 2)
+    assert set(stages.on_weights) == forwards and len(stages.static.graphs) == raycasts + 1
+    kept_e = eager_pass2(model, tsdf_mod.prepare_static(vol), moved, (8, 16),
+                         opts.raycast_samples)
+    assert_same(kept_g, kept_e)
+    plain = eager_pass2(model, tsdf_mod.prepare_static(vol), batches[:3], (8, 16),
+                        opts.raycast_samples)
+    assert not all(same(g[1]["depth_hint_bhw1"], p[1]["depth_hint_bhw1"])
+                   for g, p in zip(kept_g, plain))
+
+
+def test_pass2_raycasts_share_one_static_volume(stand_in):
+    """Pass 2 over two sessions at batch 2, with a smaller last batch and
+    revisit poses, through the graph path with a stand-in graph: the
+    raycasts of all three keys read the model's one static-volume slot.
+    The only volume-sized tensors that the graphs and slots hold are that
+    slot's values and weights; the second session's volume, of the same
+    shape but other values, is copied in and its own storage released; the
+    hints equal the eager step's bit for bit. A volume of another shape
+    then takes the slot, and the old shape's raycasts and storage go."""
+    opts, model, ds = offline_inputs(num_frames=13)
+    batches = offline_batches(opts, ds)
+    assert [cur["image_bhw3"].shape[0] for cur, _ in batches] == [2] * 5 + [1]
+    shift = torch.eye(4)
+    shift[0, 3] = 0.1
+    batches += [(dict(cur, hint_world_T_cam_b44=shift @ cur["world_T_cam_b44"]), src)
+                for cur, src in batches[:2]]
+    # two hint volumes of one shape: the scan's, and its first three batches'
+    vols = [eager_hint_volume(opts, model, ds, batches[:6]),
+            eager_hint_volume(opts, model, ds, batches[:3])]
+    assert not same(vols[0].values, vols[1].values)
+    step = offline_two_pass.make_pass2_step(model, 8, 16, opts.raycast_samples, HINT_MAX_DEPTH)
+
+    def storage(t):
+        return t.untyped_storage().data_ptr()
+
+    slot_at = first = None
+    for vol in vols:
+        static = tsdf_mod.prepare_static(vol)
+        first = first or weakref.ref(static.values)
+        own = [StorageWeakRef(t.untyped_storage()) for t in (static.values, static.weights)]
+        kept_g = [step(static, cur, src) for cur, src in batches]
+        assert_same(kept_g, eager_pass2(model, tsdf_mod.prepare_static(vol), batches, (8, 16),
+                                        opts.raycast_samples))
+        assert any(bool(h["hint_mask_bhw1"].any()) for _, h in kept_g)
+        slot = stand_in[model].static
+        slot_at = slot_at or [storage(t) for t in slot.volume[1]]
+        assert [storage(t) for t in slot.volume[1]] == slot_at
+        assert [storage(static.values), storage(static.weights)] == slot_at
+    gc.collect()
+    assert all(r.expired() for r in own)
+    assert first() is None   # the first session's tensors, not only their storage, are let go
+    assert len(slot.graphs) == 3   # batch 2, batch 1, batch 2 at the revisit poses
+    held = [t for g in all_graphs(stand_in[model])
+            for t in graphs.tensors(g.inputs) + graphs.tensors(g.outputs)]
+    held += graphs.tensors([s.volume[1] for s in (slot, stand_in[model].running) if s.volume])
+    assert {storage(t) for t in held if t.numel() >= static.values.numel()} == set(slot_at)
+
+    bounds = common.scene_bounds_for_fusion(ds, "synth0")
+    bounds["xmax"] += tsdf_mod.VOX_MOD * 0.04
+    other = tsdf_mod.prepare_static(tsdf_mod.TSDF.from_bounds(bounds, 0.04))
+    old = [StorageWeakRef(t.untyped_storage()) for t in slot.volume[1]]
+    kept_g = [step(other, cur, src) for cur, src in batches[:2]]
+    assert_same(kept_g, eager_pass2(model, other, batches[:2], (8, 16), opts.raycast_samples))
+    assert [storage(t) for t in slot.volume[1]] == [storage(other.values),
+                                                    storage(other.weights)]
+    assert len(slot.graphs) == 1
+    del static, held
+    gc.collect()
+    assert all(r.expired() for r in old)
+
+
+def test_offline_passes_on_the_cpu_and_in_training_run_eagerly():
+    """On the CPU both passes run eagerly, capture and replay nothing, and
+    equal the passes as they ran before; a model in training mode gets no
+    graphs, whatever the device."""
+    opts, model, ds = offline_inputs()
+    batches = offline_batches(opts, ds)
+    (vol, kept, _), made = counted(lambda: offline_session(opts, model, ds, batches, (8, 16)))
+    assert made == (0, 0) and model not in graphs._stages
+    vol_e = eager_hint_volume(opts, model, ds, batches)
+    assert same(vol.values, vol_e.values) and same(vol.weights, vol_e.weights)
+    assert_same(kept, eager_pass2(model, tsdf_mod.prepare_static(vol_e), batches, (8, 16),
+                                  opts.raycast_samples))
+    model.train()
+    assert offline_two_pass.make_forward(model, torch.device("cuda"))[0] is None
+    assert graphs.stages(model, torch.device("cuda")) is None and model not in graphs._stages
 
 
 @pytest.fixture
@@ -465,3 +725,48 @@ def test_graphed_step_on_the_card(cuda, tmp_path):
             assert counter("runner.graph_captures") == captures
             assert torch.equal(firsts[0].values, firsts[1])
             assert torch.equal(firsts[0].weights, firsts[2])
+
+
+@pytest.mark.card
+def test_graphed_offline_passes_on_the_card(cuda, tmp_path):
+    """On the card, the flagship model at half size and batch 4: two
+    sessions of both passes over a 40-tuple scan, graphed against the
+    passes as they ran eagerly. Hint volumes, pass-2 depths and hints are
+    equal bit for bit; the second session captures nothing; K1 counts one
+    launch a batch in each pass, and in the second session, all replays,
+    the device trace shows K1's kernel run once a batch in each pass too,
+    and K2's once a frame (pass 1's fuses)."""
+    opts, model, ds = offline_inputs(num_frames=47, settings=dict(FLAGSHIP, batch_size=4),
+                                     size=(192, 256))
+    opts.device = "cuda"
+    common.resolve_device(opts)
+    model = model.to(cuda).eval()
+    batches = offline_batches(opts, ds, cuda)
+    n = len(batches)
+    assert n == 10 and len(ds) == 40
+    hint_hw = (48, 64)
+    for session in range(2):
+        k1, k2 = counter("ops.fused_volume.launches"), counter("ops.integrate.launches")
+        captures = counter("runner.graph_captures")
+        if session == 0:
+            vol_g, kept_g, _ = offline_session(opts, model, ds, batches, hint_hw, cuda)
+            torch.cuda.synchronize()
+        else:
+            ran = {}
+            kernels = traced_kernels(
+                lambda: ran.update(zip(("vol", "kept", "static"), offline_session(
+                    opts, model, ds, batches, hint_hw, cuda))), tmp_path / "trace.json")
+            vol_g, kept_g = ran["vol"], ran["kept"]
+            assert launched(kernels, "fused_volume_kernel") == 2 * n
+            assert launched(kernels, "integrate_kernel") == len(ds)
+        assert counter("ops.fused_volume.launches") - k1 == 2 * n
+        assert counter("ops.integrate.launches") - k2 == len(ds)
+        made = counter("runner.graph_captures") - captures
+        assert made == (2 if session == 0 else 0)
+        vol_e = eager_hint_volume(opts, model, ds, batches, cuda)
+        kept_e = eager_pass2(model, tsdf_mod.prepare_static(vol_e), batches, hint_hw,
+                             opts.raycast_samples)
+        torch.cuda.synchronize()
+        assert same(vol_g.values, vol_e.values) and same(vol_g.weights, vol_e.weights)
+        assert_same(kept_g, kept_e)
+        assert any(bool(h["hint_mask_bhw1"].any()) for _, h in kept_g)
